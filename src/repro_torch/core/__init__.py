@@ -1,0 +1,28 @@
+"""Annotative index core: the host side of the retrieval path.
+
+Host logic is kept identical to the reference package's, so the same
+documents yield the same addresses, feature ids and float64 impacts.
+"""
+
+from .annotation import (INF, NINF, Annotation, AnnotationList, merge_lists,
+                         reduce_minimal, union_intervals)
+from .featurizer import (HashingFeaturizer, JsonFeaturizer, VocabFeaturizer,
+                         murmur64a)
+from .gcl import GCLNode, Phrase, Term
+from .index import DynamicIndex, Segment, Snapshot, Transaction
+from .ranking import (CollectionStats, build_block_impacts, collection_stats,
+                      index_document, ingest_documents, score_blockmax,
+                      score_bm25)
+from .stemmer import porter_stem
+from .tokenizer import AsciiTokenizer, Utf8Tokenizer
+from .warren import Warren
+
+__all__ = [
+    "INF", "NINF", "Annotation", "AnnotationList", "merge_lists",
+    "reduce_minimal", "union_intervals", "HashingFeaturizer",
+    "JsonFeaturizer", "VocabFeaturizer", "murmur64a", "GCLNode", "Phrase",
+    "Term", "DynamicIndex", "Segment", "Snapshot", "Transaction",
+    "CollectionStats", "build_block_impacts", "collection_stats",
+    "index_document", "ingest_documents", "score_blockmax", "score_bm25",
+    "porter_stem", "AsciiTokenizer", "Utf8Tokenizer", "Warren",
+]

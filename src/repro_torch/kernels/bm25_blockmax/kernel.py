@@ -1,0 +1,68 @@
+"""Wrapper of the block-max pruned BM25 sweep (``csrc/bm25_blockmax.cu``).
+
+For CUDA tensors it launches the hand-written kernel, or raises; for CPU
+tensors it computes the plain version (:func:`.ref.blockmax_scores`).
+``launches`` counts kernel launches, and nothing else.
+"""
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+from .ref import blockmax_scores as blockmax_scores_plain
+
+NAME = "bm25_blockmax"
+launches = 0
+
+
+def _launcher():
+    fn = build.load(NAME).bm25_blockmax_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+            [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def blockmax_scores(impacts: torch.Tensor, block_max: torch.Tensor,
+                    theta: torch.Tensor) -> torch.Tensor:
+    """impacts [T, NB, BS] f32, block_max [T, NB] f32, theta [1] f32 →
+    scores [NB, BS] f32, -inf on the blocks whose upper bound is below
+    theta.  All three on one device; theta stays there."""
+    global launches
+    if impacts.dim() != 3 or block_max.shape != impacts.shape[:2]:
+        raise ValueError(f"impacts {tuple(impacts.shape)} and block_max "
+                         f"{tuple(block_max.shape)} are not [T, NB, BS] and "
+                         f"[T, NB]")
+    if theta.numel() != 1:
+        raise ValueError(f"theta must hold one value, got {theta.numel()}")
+    for name, x in (("impacts", impacts), ("block_max", block_max),
+                    ("theta", theta)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.device != impacts.device:
+            raise ValueError(f"{name} is on {x.device}, impacts on "
+                             f"{impacts.device}")
+    if impacts.device.type == "cpu":
+        return blockmax_scores_plain(impacts, block_max, theta)
+    if impacts.device.type != "cuda":
+        raise ValueError(f"no kernel for device {impacts.device}")
+    for name, x in (("impacts", impacts), ("block_max", block_max),
+                    ("theta", theta)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    t, nb, bs = impacts.shape
+    out = torch.empty((nb, bs), dtype=torch.float32, device=impacts.device)
+    if out.numel() == 0:
+        return out
+    launch = _launcher()
+    with torch.cuda.device(impacts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(impacts.data_ptr(), block_max.data_ptr(),
+                     theta.data_ptr(), out.data_ptr(), t, nb, bs, stream)
+    if err != 0:
+        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
+    launches += 1
+    return out
