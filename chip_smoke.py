@@ -1,27 +1,48 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's retrieval path on one CUDA card and check it.
+"""Drive the PyTorch port's retrieval paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure raises and the script exits
 non-zero:
 
-0. device: the card, its power limit, and the kernel build (set-up time);
+0. device: the card, its power limit, and both kernels' builds (set-up
+   time; one nvcc for each source, started together);
 1. the bm25_blockmax kernel against its plain version at the small shapes
    of the kernel tests (sweep, empty lists, one element, the θ tie
    boundary, BS off the warp width, k above the positive docs, T = 0);
-2. the main path: index 50,000 seeded documents through the port's
-   ``ingest_documents``, serve 512 queries from 8 client threads through
-   ``RetrievalServer`` on the card, check them against the same server on
-   the CPU (bit for bit) and against the float64 host oracle
-   ``score_bm25``, and run ``bm25_blockmax_topk`` on the real index for 32
-   queries.  Launch counts are zeroed just before and read just after;
+2. ranked retrieval, the first slice's main path: index 50,000 seeded
+   documents through the port's ``ingest_documents``, serve 512 queries
+   from 8 client threads through ``RetrievalServer`` on the card, check
+   them against the same server on the CPU (bit for bit) and against the
+   float64 host oracle ``score_bm25``, and run ``bm25_blockmax_topk`` on
+   the real index for 32 queries.  bm25_blockmax's launch count is zeroed
+   just before and read just after;
 3. deployment width: the block-max sweep over the doc space of MS MARCO
    v1 passage (8,841,823 docs, BS = 128, T = 8) with impacts made on the
    card from the seed, timed against its plain version, the one PyTorch
    call computing the unpruned sum, and the card's memory bound; and the
    dense ``bm25_topk`` at the 2^24 accumulator;
-4. the kernels line; the last line is ``{"ok": true, "device": ...}``.
+4. join_small: the interval_join kernel against its plain version (on the
+   card and on the host) and the dense all-pairs definition, both modes,
+   at the kernel tests' shapes, empty lists, single elements, lengths off
+   the tile, and an A in no order — exact;
+5. structured, the second slice's main path: eight query-language queries
+   that use every operator, on phase 2's warren, solved by the lazy host
+   engine (``query.solve``) and by the vectorized operators composed by
+   hand on the card; the solution lists must be equal.  interval_join's
+   launch count is zeroed just before and read just after, and must equal
+   the containment operators run;
+6. json: the port's JSON store over ``json_collection(seed=0, scale=50)``
+   with dates annotated post hoc, and the paper's nine Fig. 6 queries,
+   lazy and on the card: equal counts and aggregates, query 1's values bit
+   for bit;
+7. deploy_join: interval_join at MS MARCO v1 passage's width, GC-lists
+   made on the card from the seed — J1 ``word << [30 % of passages]`` and
+   J2 ``[:] >> word`` — against its plain version and a numpy oracle,
+   timed against the plain version, ``torch.searchsorted`` (the nearest
+   single call), the whole vectorized operator and the memory bound;
+8. the kernels line; the last line is ``{"ok": true, "device": ...}``.
 
 It needs a CUDA card and the repository's ``src/`` beside it, and exits
 non-zero without a result otherwise.
@@ -47,6 +68,7 @@ T_DEPLOY = 8
 K1, B = 0.9, 0.4
 TIMED_LAUNCHES = 30
 TIE_RTOL = 1e-6
+JSON_SCALE = 50.0
 
 
 def emit(phase: str, **fields) -> None:
@@ -56,6 +78,14 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def _sync(dev) -> None:
+    """End a phase: wait for the card, so a fault shows where it
+    happened (the phases also run on the CPU, from the tests)."""
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
 
 
 # --------------------------------------------------------------------- #
@@ -453,8 +483,11 @@ def phase_main_path(dev, bw, flops, n_docs=N_DOCS, n_queries=N_QUERIES,
              lambda: blockmax_scores(imp, bmax, theta), "bm25_blockmax"),
          widest_plain_ms=time_cuda(
              lambda: ref.blockmax_scores(imp, bmax, theta)),
+         widest_library_call_ms=time_cuda(lambda: imp.sum(0)),
+         widest_library_device_ms=kernel_device_ms(lambda: imp.sum(0),
+                                                   "reduce_kernel"),
          widest_bound_ms=sweep_bound(*imp.shape, kept, bw, flops)[0])
-    return launches, worst
+    return warren, launches, worst
 
 
 # --------------------------------------------------------------------- #
@@ -566,6 +599,536 @@ def phase_deployment(dev, bw, flops):
 
 
 # --------------------------------------------------------------------- #
+# phase 4: interval_join against its plain version at small shapes
+# --------------------------------------------------------------------- #
+JOIN_MODES = ("contained_in", "containing")
+
+
+def random_gc_list(rng, n: int, span: int):
+    """(starts, ends) of a G-reduced list drawn as the kernel tests draw
+    theirs: n distinct starts in [0, span), lengths below 50."""
+    from repro_torch.core.annotation import reduce_minimal
+    starts = np.sort(rng.choice(span, size=n, replace=False)).astype(np.int64)
+    ends = starts + rng.integers(0, 50, size=n)
+    lst = reduce_minimal(starts, ends, np.zeros(n))
+    return lst.starts, lst.ends
+
+
+def join_small_cases():
+    """(name, A, B) as (starts, ends) pairs, from fixed seeds: the kernel
+    tests' sweep, empty lists, single elements, lengths off the 256-entry
+    tile, and an A in no order."""
+    cases = []
+    for na, nb in [(16, 16), (100, 37), (513, 257), (1000, 3)]:
+        rng = np.random.default_rng(na * 1000 + nb)
+        cases.append((f"sweep_{na}x{nb}", random_gc_list(rng, na, 10_000),
+                      random_gc_list(rng, nb, 10_000)))
+    empty = (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    one = (np.array([5]), np.array([9]))
+    cases += [("empty_a", empty, one), ("empty_b", one, empty),
+              ("empty_both", empty, empty)]
+    for a, b in [((5, 9), (4, 10)), ((4, 10), (5, 9)), ((5, 9), (5, 9)),
+                 ((5, 9), (20, 30))]:
+        cases.append((f"single_{a[0]}_{a[1]}_in_{b[0]}_{b[1]}",
+                      (np.array([a[0]]), np.array([a[1]])),
+                      (np.array([b[0]]), np.array([b[1]]))))
+    for na, nb in [(13, 5), (20, 17), (1, 9), (257, 3), (4099, 771)]:
+        rng = np.random.default_rng(na * 100 + nb)
+        cases.append((f"ragged_{na}x{nb}", random_gc_list(rng, na, 60_000),
+                      random_gc_list(rng, nb, 60_000)))
+    rng = np.random.default_rng(11)
+    a_s, a_e = random_gc_list(rng, 5000, 60_000)
+    perm = rng.permutation(len(a_s))
+    cases.append(("a_in_no_order", (a_s[perm], a_e[perm]),
+                  random_gc_list(rng, 700, 60_000)))
+    return cases
+
+
+def dense_join(a, b, mode: str) -> np.ndarray:
+    """The dense definition, every pair compared: int32 mask over A."""
+    a_s, a_e = (np.asarray(x, np.int64)[:, None] for x in a)
+    b_s, b_e = (np.asarray(x, np.int64)[None, :] for x in b)
+    if mode == "contained_in":
+        hit = (b_s <= a_s) & (a_e <= b_e)
+    else:
+        hit = (a_s <= b_s) & (b_e <= a_e)
+    return hit.any(axis=1).astype(np.int32)
+
+
+def phase_join_small(dev) -> int:
+    import torch
+    from repro_torch.core.vectorized import pack
+    from repro_torch.kernels.interval_join import interval_join, ref
+    tail = 3                    # PAD entries after every list
+    mismatches = 0
+    names = []
+    for name, a, b in join_small_cases():
+        a_s, a_e, _ = pack(a[0], a[1], size=len(a[0]) + tail, device=dev)
+        b_s, b_e, _ = pack(b[0], b[1], size=len(b[0]) + tail, device=dev)
+        for mode in JOIN_MODES:
+            got = interval_join(a_s, a_e, b_s, b_e, mode=mode)
+            want = ref.MODES[mode](a_s, a_e, b_s, b_e)
+            host = ref.MODES[mode](a_s.cpu(), a_e.cpu(), b_s.cpu(), b_e.cpu())
+            dense = np.concatenate([dense_join(a, b, mode),
+                                    np.zeros(tail, np.int32)])
+            bad = (int((got != want).sum()) + int((got.cpu() != host).sum())
+                   + int((got.cpu().numpy() != dense).sum()))
+            check(got.dtype == torch.int32 and bad == 0,
+                  f"{name}/{mode}: {bad} mismatches against the plain join")
+            mismatches += bad
+            # a zero-length B matches nothing; a zero-length A launches
+            # nothing
+            got = interval_join(a_s, a_e, b_s[:0], b_e[:0], mode=mode)
+            check(not bool(got.any()), f"{name}/{mode}: hit in an empty B")
+            check(interval_join(a_s[:0], a_e[:0], b_s, b_e,
+                                mode=mode).numel() == 0,
+                  f"{name}/{mode}: output for an empty A")
+        names.append(name)
+    _sync(dev)
+    emit("join_small", cases=names, modes=list(JOIN_MODES),
+         mismatches=mismatches,
+         tolerance="exact: kernel == plain on the card == plain on the host "
+                   "== the dense all-pairs definition")
+    return mismatches
+
+
+# --------------------------------------------------------------------- #
+# phases 5-6: structured queries, lazy host engine vs the card
+# --------------------------------------------------------------------- #
+def _expected_launches(dev, joins: int) -> int:
+    """One launch per containment operator on the card; none on the CPU,
+    where the wrapper takes the plain version."""
+    import torch
+    return joins if torch.device(dev).type == "cuda" else 0
+
+
+class DeviceAlgebra:
+    """Queries composed by hand from the vectorized operators on one
+    device, as ``benchmarks/json_queries.py`` composes lazy nodes: leaves
+    from ``reader.annotations``, phrases from ``Phrase.to_list()``.
+    Every list is (starts, ends, float64 values) in the vectorized layout;
+    ``joins`` counts the containment operators run."""
+
+    def __init__(self, reader, dev):
+        from repro_torch.core import vectorized
+        self.V = vectorized
+        self.reader, self.dev, self.joins = reader, dev, 0
+
+    def _pack(self, lst):
+        import torch
+        s, e, _ = self.V.pack(lst.starts, lst.ends, device=self.dev)
+        v = np.zeros(s.shape[0])
+        v[:len(lst)] = lst.values
+        return s, e, torch.from_numpy(v).to(self.dev)
+
+    def leaf(self, feature: str):
+        return self._pack(self.reader.annotations(feature))
+
+    def phrase(self, text: str):
+        return self._pack(self.reader.phrase(text).to_list())
+
+    def _contain(self, op, a, b):
+        self.joins += 1
+        return op(*a, *b[:2])
+
+    def contained_in(self, a, b):
+        return self._contain(self.V.contained_in, a, b)
+
+    def containing(self, a, b):
+        return self._contain(self.V.containing, a, b)
+
+    def not_contained_in(self, a, b):
+        return self._contain(self.V.not_contained_in, a, b)
+
+    def not_containing(self, a, b):
+        return self._contain(self.V.not_containing, a, b)
+
+    def _combine(self, op, a, b):
+        """A combination operator's output, compacted into a GC-list so
+        that a containment operator may take it as B."""
+        import torch
+        s, e = self.V.compact(*op(a[0], a[1], b[0], b[1]))
+        return s, e, torch.zeros(s.shape, dtype=torch.float64,
+                                 device=s.device)
+
+    def both_of(self, a, b):
+        return self._combine(self.V.both_of, a, b)
+
+    def one_of(self, a, b):
+        return self._combine(self.V.one_of, a, b)
+
+    def followed_by(self, a, b):
+        return self._combine(self.V.followed_by, a, b)
+
+    def spans(self, lst):
+        """[(p, q)] of a packed list's valid entries, in start order."""
+        s, e, _ = self.V.unpack(lst[0], lst[1])
+        return list(zip(s.tolist(), e.tolist()))
+
+
+def structured_queries():
+    """(query text, its hand composition): every operator of the query
+    language, over the Zipf tail of the main path's vocabulary (a phrase
+    of two tail words would rarely occur)."""
+    return [
+        ("[:] >> amplitude",
+         lambda d: d.containing(d.leaf(":"), d.leaf("amplitude"))),
+        ("[:] !>> resonance",
+         lambda d: d.not_containing(d.leaf(":"), d.leaf("resonance"))),
+        ('"school state" << [:]',
+         lambda d: d.contained_in(d.phrase("school state"), d.leaf(":"))),
+        ("(damping & frequency) << [:]",
+         lambda d: d.contained_in(d.both_of(d.leaf("damping"),
+                                            d.leaf("frequency")),
+                                  d.leaf(":"))),
+        ("(conductor ... vibration) << [:]",
+         lambda d: d.contained_in(d.followed_by(d.leaf("conductor"),
+                                                d.leaf("vibration")),
+                                  d.leaf(":"))),
+        ("[:] >> (transmission | amplitude)",
+         lambda d: d.containing(d.leaf(":"),
+                                d.one_of(d.leaf("transmission"),
+                                         d.leaf("amplitude")))),
+        ("conductor !<< ([:] >> resonance)",
+         lambda d: d.not_contained_in(d.leaf("conductor"),
+                                      d.containing(d.leaf(":"),
+                                                   d.leaf("resonance")))),
+        ("(amplitude ... resonance) !<< [:]",
+         lambda d: d.not_contained_in(d.followed_by(d.leaf("amplitude"),
+                                                    d.leaf("resonance")),
+                                      d.leaf(":"))),
+    ]
+
+
+def phase_structured(dev, warren) -> int:
+    from repro_torch.core.query import solve
+    from repro_torch.kernels.interval_join import kernel as join_kernel
+    rows = []
+    with warren:
+        lazy = {}
+        for text, _ in structured_queries():
+            t0 = time.perf_counter()
+            lazy[text] = [(p, q) for p, q, _ in solve(text, warren,
+                                                      limit=1 << 62)]
+            rows.append({"query": text, "solutions": len(lazy[text]),
+                         "lazy_ms": 1e3 * (time.perf_counter() - t0)})
+        d = DeviceAlgebra(warren, dev)
+        join_kernel.launches = 0            # the slice's main path
+        for row, (text, compose) in zip(rows, structured_queries()):
+            t0 = time.perf_counter()
+            got = d.spans(compose(d))
+            row["device_ms"] = 1e3 * (time.perf_counter() - t0)
+            check(got == lazy[text], f"{text}: the card's {len(got)} "
+                                     f"solutions differ from the lazy "
+                                     f"engine's {len(lazy[text])}")
+        _sync(dev)
+        launches = join_kernel.launches     # ends here
+    check(sum(r["solutions"] for r in rows) > 0, "no query has a solution")
+    check(d.joins > 0 and launches == _expected_launches(dev, d.joins),
+          f"interval_join launched {launches} times for {d.joins} "
+          f"containment operators")
+    emit("structured", queries=rows, launches=launches,
+         containment_operators=d.joins, mismatches=0)
+    return launches
+
+
+DATE_PATHS = [":created:", ":created_at:$date:", ":date:"]
+
+
+def build_json_warren(scale: float):
+    """The port's JSON store over ``json_collection(seed=0, scale)``, dates
+    annotated post hoc: (warren, objects, dated fields)."""
+    from repro_torch.core import (DynamicIndex, Warren, add_json,
+                                  annotate_dates)
+    from repro_torch.data.synth import json_collection
+    w = Warren(DynamicIndex())
+    data = json_collection(seed=0, scale=scale)
+    with w:
+        w.transaction()
+        for name, objs in data.items():
+            for obj in objs:
+                add_json(w, obj, collection=f"Files/{name}.json")
+        w.commit()
+    with w:
+        w.transaction()
+        dated = annotate_dates(w, DATE_PATHS)
+        w.commit()
+    return w, sum(len(v) for v in data.values()), dated
+
+
+def _group_count(reader, spans) -> int:
+    """Fig. 6 query 6's GROUP BY: distinct result words over the spans."""
+    groups = {}
+    for p, q in spans:
+        toks = reader.tokens(int(p), int(q))
+        key = " ".join(t for t in toks if len(t) > 1) if toks else "?"
+        groups[key] = groups.get(key, 0) + 1
+    return len(groups)
+
+
+def _stats(vals):
+    return (min(vals), sum(vals) / len(vals), max(vals))
+
+
+def fig6_lazy(reader):
+    """The paper's Fig. 6 queries on the port's lazy engine, as
+    ``benchmarks/json_queries.py`` writes them: (name, fn) pairs."""
+    from repro_torch.core.gcl import (BothOf, ContainedIn, Containing, OneOf,
+                                      Phrase, Term)
+
+    def h(f):
+        return Term(reader.annotations(f))
+
+    def phrase(text):
+        terms = [h(t) for t in text.split()]
+        return terms[0] if len(terms) == 1 else Phrase(terms)
+
+    def n(node):
+        return len(node.solutions())
+
+    return [
+        ("1 restaurant rating stats", lambda: _stats(
+            [v for _, _, v in ContainedIn(
+                h(":rating:"), h("Files/restaurant.json")).solutions()])),
+        ("2 zips in New York", lambda: n(ContainedIn(
+            Containing(h(":city:"), phrase("new york")),
+            h("Files/zips.json")))),
+        ("3 nanotech company names", lambda: n(ContainedIn(
+            h(":name:"), Containing(
+                h("Files/companies.json"),
+                ContainedIn(Containing(h(":category_code:"),
+                                       phrase("nanotech")),
+                            h("Files/companies.json")))))),
+        ("4 book titles+authors", lambda: n(ContainedIn(
+            OneOf(h(":title:"), h(":authors:")), h("Files/books.json")))),
+        ("5 count trades", lambda: n(ContainedIn(h(":"),
+                                                 h("Files/trades.json")))),
+        ("6 inspections GROUP BY result", lambda: _group_count(
+            reader, [(p, q) for p, q, _ in ContainedIn(
+                h(":result:"),
+                h("Files/city_inspections.json")).solutions()])),
+        ("7 count all objects", lambda: len(reader.annotations(":"))),
+        ("8 books published 2008", lambda: n(ContainedIn(
+            h(":title:"), Containing(h("Files/books.json"),
+                                     h("year=2008"))))),
+        ("9 objects created 2008-06", lambda: n(Containing(
+            h(":"), BothOf(h("year=2008"), h("month=06"))))),
+    ]
+
+
+def fig6_device(d: DeviceAlgebra):
+    """The same nine queries composed on ``d``'s device."""
+    from repro_torch.core.vectorized import PAD, unpack
+
+    def n(lst):
+        return int((lst[0] != int(PAD)).sum())
+
+    return [
+        ("1 restaurant rating stats", lambda: _stats(unpack(*d.contained_in(
+            d.leaf(":rating:"), d.leaf("Files/restaurant.json")))[2]
+            .tolist())),
+        ("2 zips in New York", lambda: n(d.contained_in(
+            d.containing(d.leaf(":city:"), d.phrase("new york")),
+            d.leaf("Files/zips.json")))),
+        ("3 nanotech company names", lambda: n(d.contained_in(
+            d.leaf(":name:"), d.containing(
+                d.leaf("Files/companies.json"),
+                d.contained_in(d.containing(d.leaf(":category_code:"),
+                                            d.phrase("nanotech")),
+                               d.leaf("Files/companies.json")))))),
+        ("4 book titles+authors", lambda: n(d.contained_in(
+            d.one_of(d.leaf(":title:"), d.leaf(":authors:")),
+            d.leaf("Files/books.json")))),
+        ("5 count trades", lambda: n(d.contained_in(
+            d.leaf(":"), d.leaf("Files/trades.json")))),
+        ("6 inspections GROUP BY result", lambda: _group_count(
+            d.reader, d.spans(d.contained_in(
+                d.leaf(":result:"), d.leaf("Files/city_inspections.json"))))),
+        ("7 count all objects", lambda: n(d.leaf(":"))),
+        ("8 books published 2008", lambda: n(d.contained_in(
+            d.leaf(":title:"), d.containing(d.leaf("Files/books.json"),
+                                            d.leaf("year=2008"))))),
+        ("9 objects created 2008-06", lambda: n(d.containing(
+            d.leaf(":"), d.both_of(d.leaf("year=2008"),
+                                   d.leaf("month=06"))))),
+    ]
+
+
+def phase_json(dev, scale: float = JSON_SCALE) -> int:
+    from repro_torch.core.gcl import ContainedIn, Term
+    from repro_torch.core.vectorized import unpack
+    from repro_torch.kernels.interval_join import kernel as join_kernel
+    t0 = time.perf_counter()
+    warren, n_objects, dated = build_json_warren(scale)
+    t_ingest = time.perf_counter() - t0
+    rows = []
+    with warren:
+        d = DeviceAlgebra(warren, dev)
+        before = join_kernel.launches
+        for (name, lazy_fn), (_, dev_fn) in zip(fig6_lazy(warren),
+                                                fig6_device(d)):
+            t0 = time.perf_counter()
+            want = lazy_fn()
+            t1 = time.perf_counter()
+            got = dev_fn()
+            _sync(dev)
+            rows.append({"query": name, "result": got,
+                         "lazy_ms": 1e3 * (t1 - t0),
+                         "device_ms": 1e3 * (time.perf_counter() - t1)})
+            check(got == want, f"{name}: card {got} != lazy {want}")
+        # query 1's values, bit for bit
+        lazy_vals = np.array([v for _, _, v in ContainedIn(
+            Term(warren.annotations(":rating:")),
+            Term(warren.annotations("Files/restaurant.json"))).solutions()])
+        dev_vals = unpack(*d.contained_in(
+            d.leaf(":rating:"), d.leaf("Files/restaurant.json")))[2]
+        check(lazy_vals.dtype == dev_vals.dtype == np.float64
+              and np.array_equal(lazy_vals.view(np.int64),
+                                 dev_vals.view(np.int64)),
+              "query 1's values differ between the card and the lazy engine")
+        _sync(dev)
+        launches = join_kernel.launches - before
+    check(launches == _expected_launches(dev, d.joins),
+          f"interval_join launched {launches} times for {d.joins} "
+          f"containment operators")
+    emit("json", scale=scale, objects=n_objects, dated_fields=dated,
+         ingest_s=t_ingest, host_objects_per_s=n_objects / t_ingest,
+         queries=rows, q1_values=len(lazy_vals), launches=launches,
+         mismatches=0)
+    return launches
+
+
+# --------------------------------------------------------------------- #
+# phase 7: interval_join at deployment width
+# --------------------------------------------------------------------- #
+def passage_space(dev, g, n_passages: int = MSMARCO_PASSAGES):
+    """MS MARCO v1 passage's doc space laid back to back, one separator
+    token after each passage; lengths from a seeded normal (mean 56, as
+    phase 3's dl), at least 1.  Returns passage (starts, ends) int32 and
+    the token count."""
+    import torch
+    lens = torch.normal(56.0, 25.0, (n_passages,), generator=g, device=dev)
+    lens = lens.round_().clamp_(min=1.0).to(torch.int64)
+    starts = torch.cumsum(lens + 1, 0) - (lens + 1)
+    ends = starts + lens - 1
+    tokens = int(ends[-1]) + 2
+    check(tokens < 2 ** 31 - 1, f"{tokens} tokens overflow int32 addresses")
+    return starts.to(torch.int32), ends.to(torch.int32), tokens
+
+
+def term_occurrences(dev, g, tokens: int, rate: float):
+    """Sorted int32 addresses of a term that takes ``rate`` of all
+    tokens."""
+    import torch
+    hit = torch.rand(tokens, generator=g, device=dev) < rate
+    return hit.nonzero().squeeze(1).to(torch.int32)
+
+
+def oracle_contained_in(pos, p_s, p_e, selected) -> np.ndarray:
+    """Host oracle for J1: a token is contained iff it lies inside a
+    passage (its owner, by np.searchsorted over all passages) that is
+    selected."""
+    owner = np.maximum(np.searchsorted(p_s, pos, side="right") - 1, 0)
+    return ((pos >= p_s[owner]) & (pos <= p_e[owner])
+            & selected[owner]).astype(np.int32)
+
+
+def oracle_containing(p_s, p_e, occ) -> np.ndarray:
+    """Host oracle for J2: a passage contains an occurrence iff some
+    occurrence address lies in [start, end] (two np.searchsorted)."""
+    return (np.searchsorted(occ, p_e, side="right")
+            > np.searchsorted(occ, p_s, side="left")).astype(np.int32)
+
+
+def join_bound(na: int, nb: int, bw: float, flops: float):
+    """(bound_ms, bound_by, bytes): each list read once and the mask
+    written once, 4·(2·NA + 2·NB + NA) bytes, over the memory rate; or
+    NA·⌈log2(NB+1)⌉ compares over the float32 rate, if that is larger."""
+    nbytes = 4 * (2 * na + 2 * nb + na)
+    by_bytes = 1e3 * nbytes / bw
+    by_ops = 1e3 * na * int(np.ceil(np.log2(nb + 1))) / flops
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+
+
+def deploy_join_cases(dev, n_passages: int):
+    """J1 and J2 over the passage space, made on ``dev`` from the seed:
+    {name: (mode, A, B, host oracle)}.  A single-token interval's start
+    and end are equal but lie in separate buffers, as ``pack`` lays them
+    out, so the kernel reads both."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    p_s, p_e, tokens = passage_space(dev, g, n_passages)
+    selected = torch.rand(p_s.shape[0], generator=g, device=dev) < 0.30
+    j1 = term_occurrences(dev, g, tokens, 0.05)
+    j2 = term_occurrences(dev, g, tokens, 0.005)
+    h = {k: x.cpu().numpy() for k, x in (("p_s", p_s), ("p_e", p_e),
+                                          ("sel", selected), ("j1", j1),
+                                          ("j2", j2))}
+    return tokens, {
+        "J1": ("contained_in", (j1, j1.clone()),
+               (p_s[selected], p_e[selected]),
+               lambda: oracle_contained_in(h["j1"], h["p_s"], h["p_e"],
+                                           h["sel"])),
+        "J2": ("containing", (p_s, p_e), (j2, j2.clone()),
+               lambda: oracle_containing(h["p_s"], h["p_e"], h["j2"])),
+    }
+
+
+def phase_deploy_join(dev, bw, flops, n_passages: int = MSMARCO_PASSAGES):
+    import torch
+    from repro_torch.core import vectorized as V
+    from repro_torch.kernels.interval_join import interval_join, ref
+    t0 = time.perf_counter()
+    tokens, cases = deploy_join_cases(dev, n_passages)
+    _sync(dev)
+    emit("deploy_join_data", passages=n_passages, tokens=tokens,
+         seconds=time.perf_counter() - t0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for name, (mode, (a_s, a_e), (b_s, b_e), oracle) in cases.items():
+        na, nb = a_s.shape[0], b_s.shape[0]
+        check(len({x.data_ptr() for x in (a_s, a_e, b_s, b_e)}) == 4,
+              f"{name}: two of the lists share a buffer, which the byte "
+              f"bound does not count")
+        got = interval_join(a_s, a_e, b_s, b_e, mode=mode)
+        want = ref.MODES[mode](a_s, a_e, b_s, b_e)
+        vs_plain = int((got != want).sum())
+        vs_oracle = int((got.cpu().numpy() != oracle()).sum())
+        check(vs_plain == 0 and vs_oracle == 0,
+              f"{name}: {vs_plain} mismatches against the plain join, "
+              f"{vs_oracle} against the host oracle")
+        a_v = torch.zeros(na, dtype=torch.float32, device=dev)
+        op = V.contained_in if mode == "contained_in" else V.containing
+        probe, keys = (b_e, a_e) if mode == "contained_in" else (b_s, a_s)
+        kernel_ms = time_cuda(lambda: interval_join(a_s, a_e, b_s, b_e,
+                                                    mode=mode),
+                              flush=flush.zero_)
+        plain_ms = time_cuda(lambda: ref.MODES[mode](a_s, a_e, b_s, b_e),
+                             flush=flush.zero_)
+        library_ms = time_cuda(lambda: torch.searchsorted(probe, keys),
+                               flush=flush.zero_)
+        operator_ms = time_cuda(lambda: op(a_s, a_e, a_v, b_s, b_e),
+                                flush=flush.zero_)
+        bound_ms, bound_by, nbytes = join_bound(na, nb, bw, flops)
+        side = "ends" if mode == "contained_in" else "starts"
+        rows[name] = dict(
+            mode=mode, shape=[na, nb], hits=int(got.sum()),
+            mismatches=vs_plain + vs_oracle, kernel_ms=kernel_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library_call=f"torch.searchsorted of A's {side} in B's {side} "
+                         f"(nearest call; computes no mask)",
+            operator_ms=operator_ms,
+            kernel_share_of_operator=kernel_ms / operator_ms)
+        emit("deploy_join", case=name, **rows[name])
+    del flush, cases
+    _sync(dev)
+    return rows
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -586,8 +1149,9 @@ def main() -> int:
     bw, flops, peaks = card_peaks(name)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    built = build.build(["bm25_blockmax"], verbose=True)
+    built = build.build(["bm25_blockmax", "interval_join"], verbose=True)
     build.load("bm25_blockmax")
+    build.load("interval_join")
     emit("device", card=smi, kind=name, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, peaks=peaks,
          build_s=time.perf_counter() - t0,
@@ -595,10 +1159,15 @@ def main() -> int:
                 for k, v in built.items()})
 
     small_err = phase_kernel_small(dev)
-    launches, real_err = phase_main_path(dev, bw, flops)
+    warren, launches, real_err = phase_main_path(dev, bw, flops)
     rows, deploy_err = phase_deployment(dev, bw, flops)
+    join_mismatches = phase_join_small(dev)
+    join_launches = phase_structured(dev, warren)
+    phase_json(dev)
+    joins = phase_deploy_join(dev, bw, flops)
 
     r = rows[10]
+    j1 = joins["J1"]
     print(json.dumps({"kernels": [{
         "name": "bm25_blockmax", "route": "cuda",
         "source": "src/repro_torch/csrc/bm25_blockmax.cu",
@@ -609,6 +1178,20 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "library_ms": r["library_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "shape": [T_DEPLOY, -(-MSMARCO_PASSAGES // BS), BS], "k": 10,
+    }, {
+        "name": "interval_join", "route": "cuda",
+        "source": "src/repro_torch/csrc/interval_join.cu",
+        "replaces": "src/repro/kernels/interval_join/kernel.py:57",
+        "launches": join_launches,
+        "max_abs_err": float(join_mismatches + sum(
+            j["mismatches"] for j in joins.values())),
+        "ms": j1["kernel_ms"], "kernel_ms": j1["kernel_ms"],
+        "plain_ms": j1["plain_ms"], "library_ms": j1["library_ms"],
+        "bound_ms": j1["bound_ms"], "bound_by": j1["bound_by"],
+        "shape": j1["shape"], "mode": j1["mode"],
+        "J2": {k: joins["J2"][k] for k in (
+            "shape", "mode", "kernel_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

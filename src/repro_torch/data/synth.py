@@ -1,12 +1,14 @@
-"""Seeded synthetic corpus: Zipfian TREC-like documents.
+"""Seeded synthetic corpora: Zipfian TREC-like documents and the
+schema-heterogeneous JSON collections of the paper's Fig. 5.
 
-The same seed yields the same documents as the reference package's
-``doc_generator``, so both index the same text.
+The same seed yields the same documents and objects as the reference
+package's ``doc_generator`` and ``json_collection``, so both index the same
+data.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -31,3 +33,42 @@ def doc_generator(seed: int, n_docs: int, mean_len: int = 80) -> Iterator[Tuple[
         n = max(8, int(rng.normal(mean_len, mean_len / 3)))
         words = rng.choice(_WORDS, size=n, p=probs)
         yield f"doc{seed}_{i}", " ".join(words)
+
+
+def json_collection(seed: int = 0, scale: float = 1.0) -> Dict[str, list]:
+    """Schema-heterogeneous JSON subcollections matching Fig. 5's shapes."""
+    rng = np.random.default_rng(seed)
+    cities = ["new york", "brooklyn", "queens", "albany", "buffalo"]
+    cuisines = ["pizza", "thai", "diner", "bakery", "sushi"]
+    results = ["pass", "fail", "violation", "warning"]
+    cats = ["software", "web", "nanotech", "biotech", "games"]
+    n = lambda k: max(2, int(k * scale))
+
+    def date_h(i):  # human-readable
+        return f"{'Jan Feb Mar Apr May Jun Jul Aug Sep Oct Nov Dec'.split()[i % 12]} {i % 28 + 1} {2005 + i % 10}"
+
+    books = [{"title": f"technical book {i} on {rng.choice(cats)}",
+              "authors": [f"author {rng.integers(50)}" for _ in range(rng.integers(1, 4))],
+              "pageCount": int(rng.integers(80, 900)),
+              "created": f"{2005 + i % 10}-{i % 12 + 1:02d}-{i % 28 + 1:02d}",
+              "status": "PUBLISH"} for i in range(n(40))]
+    zips = [{"city": str(rng.choice(cities)), "zip": f"{10000 + i}",
+             "pop": int(rng.integers(1000, 90000)), "state": "NY"}
+            for i in range(n(120))]
+    restaurants = [{"name": f"restaurant {i}", "cuisine": str(rng.choice(cuisines)),
+                    "rating": float(np.round(rng.random() * 5, 1)),
+                    "city": str(rng.choice(cities))} for i in range(n(80))]
+    inspections = [{"id": f"insp-{i}", "result": str(rng.choice(results)),
+                    "sector": str(rng.choice(cats)),
+                    "date": date_h(i)} for i in range(n(300))]
+    companies = [{"name": f"company {i}", "category_code": str(rng.choice(cats)),
+                  "founded_year": int(2000 + i % 20),
+                  "created_at": {"$date": int(1.1e12 + rng.integers(0, 3e11))},
+                  "description": f"a {rng.choice(cats)} company doing {rng.choice(cats)}"}
+                 for i in range(n(150))]
+    trades = [{"ticker": str(rng.choice(["AAA", "BBB", "CCC"])),
+               "price": float(np.round(10 + rng.random() * 90, 2)),
+               "qty": int(rng.integers(1, 1000))} for i in range(n(500))]
+    return {"books": books, "zips": zips, "restaurant": restaurants,
+            "city_inspections": inspections, "companies": companies,
+            "trades": trades}

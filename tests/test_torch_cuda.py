@@ -1,4 +1,4 @@
-"""On the card: the CUDA kernel and the device scorer against their plain
+"""On the card: the CUDA kernels and the device scorer against their plain
 versions.  Every test here needs a CUDA card and skips without one.
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -16,10 +16,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.vectorized import bm25_topk, stable_topk
+from repro_torch.core.annotation import reduce_minimal
+from repro_torch.core.vectorized import (bm25_topk, contained_in, pack,
+                                         stable_topk)
 from repro_torch.kernels.bm25_blockmax import (blockmax_scores,
                                                bm25_blockmax_topk,
                                                bm25_topk_ref, kernel, ref)
+from repro_torch.kernels.interval_join import (contained_in_mask_ref,
+                                               containing_mask_ref,
+                                               interval_join)
+from repro_torch.kernels.interval_join import kernel as join_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -94,3 +100,86 @@ def test_stable_topk_on_card_matches_host(cuda_device):
     want = stable_topk(x, 500)
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
+
+
+# ------------------------------------------------------------------ #
+# interval_join
+# ------------------------------------------------------------------ #
+JOIN_MODES = {"contained_in": contained_in_mask_ref,
+              "containing": containing_mask_ref}
+
+
+def _gc(seed, n, span):
+    """A G-reduced list (starts, ends) as the kernel tests draw one."""
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.choice(span, size=n, replace=False))
+    ends = starts + rng.integers(0, 50, size=n)
+    lst = reduce_minimal(starts.astype(np.int64), ends.astype(np.int64),
+                         np.zeros(n))
+    return lst.starts, lst.ends
+
+
+@pytest.mark.parametrize("na,nb,span", [
+    (16, 16, 10_000), (100, 37, 10_000), (513, 257, 10_000),
+    (1000, 3, 10_000), (13, 5, 4000), (20, 17, 4000), (1, 9, 4000),
+    (257, 3, 4000), (5000, 700, 60_000), (0, 4, 100), (4, 0, 100),
+    (0, 0, 100)])
+@pytest.mark.parametrize("mode", list(JOIN_MODES))
+def test_interval_join_equals_plain(cuda_device, na, nb, span, mode):
+    a = _gc(na * 1000 + nb, na, span)
+    b = _gc(nb * 7 + na, nb, span)
+    a_s, a_e, _ = pack(*a, size=na + 3, device=cuda_device)   # PAD tails
+    b_s, b_e, _ = pack(*b, size=nb + 3, device=cuda_device)
+    before = join_kernel.launches
+    got = interval_join(a_s, a_e, b_s, b_e, mode=mode)
+    assert join_kernel.launches == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got, JOIN_MODES[mode](a_s, a_e, b_s, b_e))
+    assert torch.equal(got.cpu(), JOIN_MODES[mode](
+        a_s.cpu(), a_e.cpu(), b_s.cpu(), b_e.cpu()))
+
+
+@pytest.mark.parametrize("a,b,contained,containing", [
+    ((5, 9), (4, 10), 1, 0), ((4, 10), (5, 9), 0, 1),
+    ((5, 9), (5, 9), 1, 1), ((5, 9), (20, 30), 0, 0)])
+def test_interval_join_single_element(cuda_device, a, b, contained,
+                                      containing):
+    a_s, a_e, _ = pack([a[0]], [a[1]], device=cuda_device)
+    b_s, b_e, _ = pack([b[0]], [b[1]], device=cuda_device)
+    assert int(interval_join(a_s, a_e, b_s, b_e)[0]) == contained
+    assert int(interval_join(a_s, a_e, b_s, b_e,
+                             mode="containing")[0]) == containing
+
+
+def test_interval_join_zero_length_lists(cuda_device):
+    a_s, a_e, _ = pack([3, 8], [4, 9], device=cuda_device)
+    empty = a_s[:0]
+    for mode in JOIN_MODES:
+        assert not interval_join(a_s, a_e, empty, empty, mode=mode).any()
+        before = join_kernel.launches
+        assert interval_join(empty, empty, a_s, a_e, mode=mode).numel() == 0
+        assert join_kernel.launches == before
+
+
+def test_interval_join_rejects_bad_input(cuda_device):
+    x = torch.arange(8, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        interval_join(x[::2], x[::2], x, x)
+    with pytest.raises(TypeError, match="int32"):
+        interval_join(x.long(), x.long(), x, x)
+    with pytest.raises(ValueError, match="is on"):
+        interval_join(x, x, x.cpu(), x.cpu())
+
+
+def test_vectorized_contained_in_on_card_matches_host(cuda_device):
+    a = _gc(3, 2000, 40_000)
+    b = _gc(4, 300, 40_000)
+    host = [pack(*a, values=np.arange(len(a[0]), dtype=np.float32)),
+            pack(*b)]
+    card = [[t.to(cuda_device) for t in lst] for lst in host]
+    before = join_kernel.launches
+    got = contained_in(*card[0], *card[1][:2])
+    assert join_kernel.launches == before + 1
+    want = contained_in(*host[0], *host[1][:2])
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

@@ -1,8 +1,12 @@
-"""The port's dense scorer and top-k against the reference package's.
+"""The port's device algebra against the reference package's.
 
 ``bm25_topk`` on the CPU must give the reference scores bit for bit and the
 same ids in the same order, ties included; ``stable_topk`` must order like
-a stable descending sort.
+a stable descending sort.  The GCL array algebra (τ/ρ, G-reduction, the
+containment and combination operators) must give the reference's int32
+outputs bit for bit and its values exactly, on the property-test lists of
+the reference's ``tests/test_vectorized.py``, and the lazy engine's
+solutions.
 """
 
 import os
@@ -12,11 +16,14 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from hypothesis import given, settings, strategies as st
 
 torch = pytest.importorskip("torch")
 
 from repro.core import vectorized as jvec
+from repro_torch.core import gcl
 from repro_torch.core import vectorized as tvec
+from repro_torch.core.annotation import AnnotationList, reduce_minimal
 
 
 def _batch(seed, q, t, l, n_docs, fill, tie_levels):
@@ -107,3 +114,144 @@ def test_pack_unpack_match_reference(size):
         np.testing.assert_array_equal(g.numpy(), w)
     for w, g in zip(jvec.unpack(*want), tvec.unpack(*got)):
         np.testing.assert_array_equal(g, w)
+
+
+# ------------------------------------------------------------------ #
+# the GCL array algebra
+# ------------------------------------------------------------------ #
+gc_strategy = st.lists(
+    st.tuples(st.integers(0, 60), st.integers(0, 10), st.integers(0, 4))
+    .map(lambda t: (t[0], t[0] + t[1], t[2] / 4)),
+    max_size=16,
+)
+
+
+def _gc(ivs):
+    if not ivs:
+        return AnnotationList.empty()
+    s = np.array([i[0] for i in ivs], dtype=np.int64)
+    e = np.array([i[1] for i in ivs], dtype=np.int64)
+    return reduce_minimal(s, e, np.array([i[2] for i in ivs]))
+
+
+CONTAINMENT = ["contained_in", "containing", "not_contained_in",
+               "not_containing"]
+COMBINATION = ["both_of", "one_of", "followed_by"]
+LAZY = {"contained_in": gcl.ContainedIn, "containing": gcl.Containing,
+        "not_contained_in": gcl.NotContainedIn,
+        "not_containing": gcl.NotContaining, "both_of": gcl.BothOf,
+        "one_of": gcl.OneOf, "followed_by": gcl.FollowedBy}
+
+
+def _same(got, want):
+    """Bit-equal: the same dtype and the same bits, element for element."""
+    want = np.asarray(want)
+    got = got.numpy()
+    assert got.dtype == want.dtype, (got.dtype, want.dtype)
+    np.testing.assert_array_equal(got.view(np.uint8), want.view(np.uint8))
+
+
+@pytest.mark.parametrize("name", CONTAINMENT + COMBINATION)
+@settings(max_examples=30, deadline=None)
+@given(a=gc_strategy, b=gc_strategy)
+def test_gcl_operator_bit_equal_to_reference(name, a, b):
+    A, B = _gc(a), _gc(b)
+    ja, jb = jvec.pack(A.starts, A.ends, A.values), jvec.pack(B.starts, B.ends)
+    ta = tvec.pack(A.starts, A.ends, A.values)
+    tb = tvec.pack(B.starts, B.ends)
+    if name in CONTAINMENT:
+        want = getattr(jvec, name)(*ja, *jb[:2])
+        got = getattr(tvec, name)(*ta, *tb[:2])
+    else:
+        want = getattr(jvec, name)(*ja[:2], *jb[:2])
+        got = getattr(tvec, name)(*ta[:2], *tb[:2])
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _same(g, w)
+    lazy = LAZY[name](gcl.Term(A), gcl.Term(B)).solutions()
+    s, e, v = tvec.unpack(*got) if name in CONTAINMENT else \
+        tvec.unpack(*got[:2])
+    assert sorted(zip(s.tolist(), e.tolist())) == [(p, q) for p, q, _ in lazy]
+    if name in CONTAINMENT:        # values ride along exactly
+        assert v.tolist() == [np.float32(x) for _, _, x in lazy]
+
+
+@pytest.mark.parametrize("name", ["contained_in_mask", "containing_mask"])
+@settings(max_examples=25, deadline=None)
+@given(a=gc_strategy, b=gc_strategy)
+def test_containment_mask_bit_equal_to_reference(name, a, b):
+    A, B = _gc(a), _gc(b)
+    want = getattr(jvec, name)(*jvec.pack(A.starts, A.ends)[:2],
+                               *jvec.pack(B.starts, B.ends)[:2])
+    got = getattr(tvec, name)(*tvec.pack(A.starts, A.ends)[:2],
+                              *tvec.pack(B.starts, B.ends)[:2])
+    _same(got, want)
+
+
+@settings(max_examples=25, deadline=None)
+@given(a=gc_strategy)
+def test_tau_rho_bit_equal_to_reference(a):
+    A = _gc(a)
+    js, je, _ = jvec.pack(A.starts, A.ends)
+    ts, te, _ = tvec.pack(A.starts, A.ends)
+    ks = np.arange(-2, 75)
+    for fn in ("tau", "rho"):
+        for g, w in zip(getattr(tvec, fn)(ts, te, ks),
+                        getattr(jvec, fn)(js, je, ks)):
+            _same(g, w)
+    term = gcl.Term(A)
+    for i, k in enumerate(ks):
+        for fn in ("tau", "rho"):
+            s, e = (x[i] for x in getattr(tvec, fn)(ts, te, ks))
+            want = getattr(term, fn)(int(k))
+            if want[1] >= gcl.INF:
+                assert int(s) == tvec.PAD
+            else:
+                assert (int(s), int(e)) == want[:2]
+
+
+@settings(max_examples=25, deadline=None)
+@given(a=gc_strategy, b=gc_strategy)
+def test_g_reduce_mask_bit_equal_to_reference(a, b):
+    """Unreduced candidates with duplicates and nesting, PAD mixed in."""
+    ivs = [(p, q) for p, q, _ in a + b]
+    s = np.array([p for p, _ in ivs] + [int(jvec.PAD)] * 3, np.int32)
+    e = np.array([q for _, q in ivs] + [int(jvec.PAD)] * 3, np.int32)
+    perm = np.random.default_rng(len(ivs)).permutation(len(s))
+    s, e = s[perm], e[perm]
+    want = jvec.g_reduce_mask(jnp.asarray(s), jnp.asarray(e))
+    got = tvec.g_reduce_mask(torch.from_numpy(s), torch.from_numpy(e))
+    for g, w in zip(got[:3], want[:3]):
+        _same(g, w)
+    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+
+
+def test_followed_by_keeps_int32_at_pad():
+    s, e, _ = tvec.pack([0, 5], [1, 6], size=4)
+    out = tvec.followed_by(s, e, s, e)
+    assert all(x.dtype == torch.int32 for x in out)
+    assert int(out[0][0]) == 0 and int(out[1][0]) == 6
+
+
+@pytest.mark.parametrize("name", COMBINATION)
+@settings(max_examples=25, deadline=None)
+@given(a=gc_strategy, b=gc_strategy, x=gc_strategy)
+def test_compact_makes_combination_a_containment_b(name, a, b, x):
+    """A combination's output, compacted, is a GC-list: its valid entries
+    in the same order, PAD at the tail, and the containment operators on
+    it as B give the lazy engine's answers."""
+    A, B, X = _gc(a), _gc(b), _gc(x)
+    ta, tb = tvec.pack(A.starts, A.ends), tvec.pack(B.starts, B.ends)
+    out = getattr(tvec, name)(*ta[:2], *tb[:2])
+    c_s, c_e = tvec.compact(*out)
+    n = int((out[0] != tvec.PAD).sum())
+    assert bool((c_s[n:] == tvec.PAD).all())
+    for g, w in zip(tvec.unpack(c_s, c_e)[:2], tvec.unpack(*out)[:2]):
+        np.testing.assert_array_equal(g, w)
+    tx = tvec.pack(X.starts, X.ends, X.values)
+    comb = LAZY[name](gcl.Term(A), gcl.Term(B))
+    for op in ("contained_in", "containing"):
+        s, e, _ = tvec.unpack(*getattr(tvec, op)(*tx, c_s, c_e))
+        lazy = LAZY[op](gcl.Term(X), comb).solutions()
+        assert list(zip(s.tolist(), e.tolist())) == [(p, q)
+                                                     for p, q, _ in lazy]
