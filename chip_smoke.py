@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's retrieval paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure raises and the script exits
 non-zero:
 
-0. device: the card, its power limit, and both kernels' builds (set-up
-   time; one nvcc for each source, started together);
+0. device: the card, its power limit, the matmul precision settings, and
+   the three kernels' builds (set-up time; one nvcc for each source,
+   started together) with their registers and spills;
 1. the bm25_blockmax kernel against its plain version at the small shapes
    of the kernel tests (sweep, empty lists, one element, the θ tie
    boundary, BS off the warp width, k above the positive docs, T = 0);
@@ -42,14 +43,36 @@ non-zero:
    J2 ``[:] >> word`` — against its plain version and a numpy oracle,
    timed against the plain version, ``torch.searchsorted`` (the nearest
    single call), the whole vectorized operator and the memory bound;
-8. the kernels line; the last line is ``{"ok": true, "device": ...}``.
+8. decode_small: the gqa_decode kernel against its plain version (on the
+   card and on the host), float32 and bfloat16, at the reference kernel
+   test's sweep, length 0, length = S, length > S, S off the tile, G = 5
+   at D = 128, an odd D/8;
+9. lm_serve, the third slice's main path: Qwen2.5-14B at full width in
+   bfloat16 (48 layers, random weights from the seed on the card) behind
+   ``LMServer(max_slots=8, max_len=1024)``, eight RAG-sized prompts of
+   64-512 tokens, 32 new tokens each, twice (equal tokens).  gqa_decode's
+   launch count is zeroed just before each call and read just after
+   (48 × steps).  Every step's logits are held against the port's float32
+   forward on the same tokens; the bfloat16 forward's distance from it
+   sets the tolerance, and a decode with fp8-rounded weights must fail it;
+10. decode_deploy: decode_step at 4 sequences of a 32k cache (lengths from
+   the seed in 28,672-32,767, K and V from the seed) against the step's
+   memory bound, one profiled window, and the kernel alone at one layer's
+   [4, 32768, 8, 128] (K and V drawn anew from the seed; all S and the
+   cache's lengths) and at long_500k's [1, 524288, 8, 128], checked
+   against its plain version with a tolerance scaled to the output and
+   timed against it, ``scaled_dot_product_attention`` and its bound;
+11. the kernels line; the last line is ``{"ok": true, "device": ...}``.
 
 It needs a CUDA card and the repository's ``src/`` beside it, and exits
 non-zero without a result otherwise.
 """
 
+import contextlib
+import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -111,6 +134,20 @@ def nvidia_smi() -> str:
     return out[0].strip()
 
 
+def ptxas_summary(log: str) -> dict:
+    """``-Xptxas -v`` output → {mangled function: its spill and register
+    lines}."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+        elif fn and ("spill stores" in line or "registers" in line):
+            line = line.split(" : ", 1)[-1].strip()
+            out[fn] = f"{out[fn]}; {line}" if fn in out else line
+    return out
+
+
 # --------------------------------------------------------------------- #
 # timing
 # --------------------------------------------------------------------- #
@@ -135,22 +172,40 @@ def time_cuda(fn, n: int = TIMED_LAUNCHES, flush=None) -> float:
     return float(np.median(times))
 
 
+PROFILE_TRIES = 3
+
+
+def device_events(fn):
+    """Run ``fn`` under the profiler: ([(device activity, ms)], wall ms).
+    A window now and then comes back with no device activity at all (seen
+    in phase 2 on an H100), so such a window runs again, up to
+    PROFILE_TRIES times, before the run fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for attempt in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = [(e.name, e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events, wall_ms
+        emit("profiler_empty_window", attempt=attempt + 1)
+    raise AssertionError(f"the profiler saw no device activity in "
+                         f"{PROFILE_TRIES} windows")
+
+
 def device_busy(fn) -> dict:
     """Run ``fn`` under the profiler: wall time, summed device activity
     (kernels and copies) and the top device activities by time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events, wall_ms = device_events(fn)
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
+    for name, ms in events:
+        by_name[name] = by_name.get(name, 0.0) + ms
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_ms": wall_ms, "device_ms": busy_ms,
@@ -165,17 +220,10 @@ def kernel_device_ms(fn, kernel_name: str, n: int = TIMED_LAUNCHES) -> float:
     profiler may drop an event at the window's edge, so the mean is over
     the launches it kept (at least half)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel_name in e.name]
+    events, _ = device_events(lambda: [fn() for _ in range(n)])
+    times = [ms for name, ms in events if kernel_name in name]
     check(n // 2 <= len(times) <= n, f"profiler saw {len(times)} launches "
                                      f"of {kernel_name}, expected {n}")
     return float(np.mean(times))
@@ -1129,6 +1177,427 @@ def phase_deploy_join(dev, bw, flops, n_passages: int = MSMARCO_PASSAGES):
 
 
 # --------------------------------------------------------------------- #
+# phase 8: gqa_decode against its plain version at small shapes
+# --------------------------------------------------------------------- #
+# (b, hkv, g, d, s, lengths or None for lengths drawn in [1, S]): the
+# reference kernel test's sweep, then length 0, length = S, length > S, S
+# off the 128 tile, G = 5 at D = 128, an odd D/8, and Qwen2.5-14B's
+# per-layer shape at phase 9's cache.
+DECODE_CASES = [
+    (2, 2, 4, 64, 256, None), (1, 4, 1, 128, 512, None),
+    (2, 1, 8, 128, 300, None), (4, 2, 2, 64, 1024, None),
+    (2, 2, 5, 16, 256, [0, 7]), (1, 2, 3, 32, 128, [0]),
+    (2, 1, 5, 128, 256, [256, 256]), (2, 2, 5, 16, 300, [300, 1]),
+    (2, 2, 5, 64, 300, [301, 10_000]), (1, 1, 1, 8, 1, [1]),
+    (3, 2, 5, 24, 130, [129, 2, 130]), (8, 8, 5, 128, 1024, None),
+]
+# the reference kernel test's tolerances: bfloat16 outputs round to 8 bits
+DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def decode_close(got, want, dtype: str) -> bool:
+    """|got - want| <= tol + tol·|want| elementwise, the kernel tests'
+    rtol = atol (bfloat16 outputs round to 8 bits at any magnitude)."""
+    tol = DECODE_TOL[dtype]
+    return bool(((got.float() - want.float()).abs()
+                 <= tol + tol * want.float().abs()).all())
+
+
+def phase_decode_small(dev) -> float:
+    import torch
+    from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
+    worst = {}
+    for dtype in DECODE_TOL:
+        tdt = getattr(torch, dtype)
+        for b, hkv, g, d, s, lengths in DECODE_CASES:
+            rng = np.random.default_rng(b * 100 + s + g)
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(tdt)
+                for shape in ((b, hkv, g, d), (b, s, hkv, d), (b, s, hkv, d)))
+            if lengths is None:
+                lengths = rng.integers(1, s + 1, size=b).tolist()
+            length = torch.tensor(lengths, dtype=torch.int32)
+            host = gqa_decode_ref(q, k, v, length)
+            args = [x.to(dev) for x in (q, k, v, length)]
+            got = gqa_decode(*args)
+            want = gqa_decode_ref(*args)
+            err = max(float((got.float() - want.float()).abs().max()),
+                      float((got.float().cpu() - host.float()).abs().max()))
+            case = f"{dtype} {[b, hkv, g, d, s]} length {lengths}"
+            check(got.dtype == tdt and decode_close(got, want, dtype)
+                  and decode_close(got.cpu(), host, dtype),
+                  f"gqa_decode {case}: {err} from the plain version")
+            check(all(not bool(got[i].any())
+                      for i, n in enumerate(lengths) if n == 0),
+                  f"gqa_decode {case}: length 0 must give zeros")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+    _sync(dev)
+    emit("decode_small", cases=[c[:5] for c in DECODE_CASES],
+         max_abs_err=worst, tolerance={k: f"rtol = atol = {v}"
+                                       for k, v in DECODE_TOL.items()},
+         compared="kernel vs the plain version on the card and on the host")
+    return max(worst.values())
+
+
+# --------------------------------------------------------------------- #
+# phase 9: LM decode serving, the third slice's main path
+# --------------------------------------------------------------------- #
+LM_ARCH = "qwen2.5-14b"
+LM_SLOTS = 8
+LM_MAX_LEN = 1024
+LM_PROMPT_LENS = (64, 512)   # a RAG prompt: a few retrieved passages + a
+LM_MAX_NEW = 32              # question
+# The bf16 decode's logits against the float32 forward on the same weights
+# and tokens, measured against what bf16 rounding alone does there: the
+# port's forward in bf16 (another order of operations, no kernel) against
+# the same float32 forward.  The decode may be at most LOGIT_RATIO times
+# as far in mean |Δ|, and lose at most TOP1_SLACK of top-1 agreement.
+LOGIT_RATIO = 1.5
+TOP1_SLACK = 0.1
+
+
+def rag_prompts(vocab: int, n: int, lens=LM_PROMPT_LENS, seed: int = SEED):
+    rng = np.random.default_rng(seed + 13)
+    sizes = rng.integers(lens[0], lens[1] + 1, size=n)
+    return [rng.integers(0, vocab, size=int(m)).tolist() for m in sizes]
+
+
+@contextlib.contextmanager
+def recorded_steps(server):
+    """Record every step's fed tokens and logits of ``server.generate``."""
+    steps = []
+    step = server.step
+
+    def recording(tokens):
+        logits = step(tokens)
+        steps.append((tokens.clone(), logits))
+        return logits
+    server.step = recording
+    try:
+        yield steps
+    finally:
+        del server.step     # back to the method, with no cycle to the server
+
+
+def fp8_round_(model) -> None:
+    """Round every weight in place to float8 e4m3 with a per-tensor scale
+    (amax → 448), kept in the model's dtype: the same decode, in a lower
+    precision than bfloat16."""
+    import torch
+    with torch.no_grad():
+        for p in model.parameters():
+            scale = p.float().abs().amax().clamp(min=1e-12) / 448.0
+            p.copy_((p.float() / scale).to(torch.float8_e4m3fn).float()
+                    * scale)
+
+
+def logit_agreement(dec, ref) -> dict:
+    """max and mean |Δ| of two [B, T, V] logit tensors, and the share of
+    (sequence, step) whose argmax agrees."""
+    import torch
+    diff_max, diff_sum, agree = 0.0, 0.0, 0
+    for i in range(dec.shape[0]):           # one sequence at a time
+        d = (dec[i].float() - ref[i].float()).abs()
+        diff_max = max(diff_max, float(d.max()))
+        diff_sum += float(d.sum(dtype=torch.float64))
+        agree += int((dec[i].argmax(-1) == ref[i].argmax(-1)).sum())
+    n = dec.shape[0] * dec.shape[1]
+    return {"max_abs": diff_max, "mean_abs": diff_sum / (n * dec.shape[2]),
+            "top1_agree": agree / n}
+
+
+def phase_lm_serve(dev, cfg=None, slots: int = LM_SLOTS,
+                   max_len: int = LM_MAX_LEN, lens=LM_PROMPT_LENS,
+                   max_new: int = LM_MAX_NEW) -> dict:
+    import torch
+    from repro_torch.configs.lm_family import get_config
+    from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_cache, init_params)
+    from repro_torch.serve import LMServer
+    cfg = cfg or get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = init_params(cfg, gen, dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    prompts = rag_prompts(cfg.vocab, slots, lens)
+    server = LMServer(model, max_slots=slots, max_len=max_len, device=dev)
+    runs = []
+    for call in range(2):
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        with recorded_steps(server) as steps:
+            _sync(dev)
+            gqa_kernel.launches = 0                 # the slice's main path
+            t0 = time.perf_counter()
+            outs = server.generate(prompts, max_new=max_new)
+            _sync(dev)
+            seconds = time.perf_counter() - t0
+            launches = gqa_kernel.launches          # ends here
+        n_steps = len(steps)
+        check(n_steps == max(map(len, prompts)) + max_new,
+              f"call {call}: {n_steps} decode steps")
+        check(launches == _expected_launches(dev, cfg.n_layers * n_steps),
+              f"call {call}: gqa_decode launched {launches} times in "
+              f"{n_steps} steps of {cfg.n_layers} layers")
+        check(all(len(o) == max_new for o in outs)
+              and all(0 <= t < cfg.vocab for o in outs for t in o),
+              f"call {call}: malformed output")
+        runs.append(dict(
+            seconds=seconds, steps=n_steps, launches=launches,
+            ms_per_step=1e3 * seconds / n_steps,
+            new_tokens_per_s=slots * max_new / seconds,
+            tokens_per_s=slots * n_steps / seconds,
+            peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if torch.device(dev).type == "cuda" else None)))
+        if call == 0:
+            first, fed = outs, torch.stack([t for t, _ in steps], 1)
+            dec = torch.stack([lg for _, lg in steps], 1)   # [B, T, V]
+        del steps
+    check(outs == first, "two generate calls gave different tokens")
+    check(bool(torch.isfinite(dec).all()), "non-finite decode logits")
+    server.cache = None
+
+    # the float32 reference: the port's forward on the tokens the decode
+    # was fed, every weight widened from bfloat16 one layer at a time
+    t0 = time.perf_counter()
+    ref = forward(model, fed, dtype=torch.float32)
+    _sync(dev)
+    ref_s = time.perf_counter() - t0
+    bf16 = logit_agreement(dec, ref)
+    del dec
+    rounding = logit_agreement(forward(model, fed), ref)
+    logit_tol = LOGIT_RATIO * rounding["mean_abs"]
+    top1_min = rounding["top1_agree"] - TOP1_SLACK
+
+    # the same decode in a lower precision must fall outside the tolerance
+    fp8_round_(model)
+    cache = init_cache(cfg, slots, max_len, dev)
+    low = torch.stack([decode_step(model, cache, fed[:, i])[0]
+                       for i in range(fed.shape[1])], 1)
+    del cache
+    fp8 = logit_agreement(low, ref)
+    del low, ref, model, server
+    gc.collect()                # phase 10 needs the card's memory back
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    row = dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
+               params=cfg.param_count(), slots=slots, max_len=max_len,
+               prompt_lens=[len(p) for p in prompts], max_new=max_new,
+               init_s=init_s, calls=runs, tokens_equal=True,
+               ref_forward_s=ref_s, logits_vs_f32=bf16,
+               forward_vs_f32=rounding, fp8_weights_vs_f32=fp8,
+               mean_abs_tol=logit_tol, top1_min=top1_min,
+               tolerance=f"decode mean |Δ| <= {LOGIT_RATIO} x the "
+                         f"{cfg.dtype} forward's, top-1 agreement >= its "
+                         f"- {TOP1_SLACK}")
+    emit("lm_serve", **row)
+    check(bf16["mean_abs"] <= logit_tol and bf16["top1_agree"] >= top1_min,
+          f"decode logits vs the float32 reference: {bf16}, "
+          f"tolerance {logit_tol}, top-1 >= {top1_min}")
+    check(fp8["mean_abs"] > logit_tol or fp8["top1_agree"] < top1_min,
+          f"the tolerance passes an fp8-weight decode: {fp8}")
+    return row
+
+
+# --------------------------------------------------------------------- #
+# phase 10: decode at the deployment width, 4 sequences at 32k
+# --------------------------------------------------------------------- #
+DEPLOY_B = 4
+DEPLOY_S = 32_768
+DEPLOY_LENS = (28_672, 32_767)
+DEPLOY_STEPS = 20
+
+
+def decode_bound(n_kv_rows: int, hkv: int, g: int, d: int, b: int,
+                 elt: int, bw: float, flops: float):
+    """(bound_ms, bound_by, bytes) of gqa_decode: every valid K and V row
+    read once, q read and the output written once, over the memory rate;
+    or its 4·rows·Hkv·G·D float32 operations over the float32 rate."""
+    nbytes = 2 * n_kv_rows * hkv * d * elt + 2 * b * hkv * g * d * elt
+    by_bytes = 1e3 * nbytes / bw
+    by_ops = 1e3 * 4 * n_kv_rows * hkv * g * d / flops
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+
+
+# At deployment lengths an output row averages 10^4-10^6 rows of V and is
+# small (rms ~1e-2 at 32k, ~2e-3 at 500k on seeded K/V), so phase 8's
+# absolute 2e-2 would pass zeros.  This tolerance scales with the output:
+# 1e-2 relative is above the one bfloat16 ulp (2^-7 relative) by which two
+# roundings of nearly equal float32 sums can differ; the floor, 1e-3 of the
+# output's rms, is for entries near 0.
+DEPLOY_RTOL, DEPLOY_FLOOR = 1e-2, 1e-3
+
+
+def deploy_close(got, want) -> bool:
+    """|got - want| <= DEPLOY_RTOL·|want| + DEPLOY_FLOOR·rms(want)."""
+    got, want = got.float(), want.float()
+    rms = float(want.pow(2).mean().sqrt())
+    return bool(((got - want).abs()
+                 <= DEPLOY_RTOL * want.abs() + DEPLOY_FLOOR * rms).all())
+
+
+def check_deploy(name, q, k, v, length) -> float:
+    """The kernel against its plain version at a deployment shape; the
+    tolerance must also refuse an answer that reads half the positions,
+    and zeros.  Returns max |Δ|."""
+    import torch
+    from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
+    got = gqa_decode(q, k, v, length)
+    want = gqa_decode_ref(q, k, v, length)
+    err = float((got.float() - want.float()).abs().max())
+    check(deploy_close(got, want),
+          f"{name}: gqa_decode is {err} from the plain version")
+    check(not deploy_close(gqa_decode_ref(q, k, v, length // 2), want)
+          and not deploy_close(torch.zeros_like(want), want),
+          f"{name}: the tolerance passes half the positions, or zeros")
+    return err
+
+
+def time_decode_kernel(name, q, k, v, length, bw, flops, flush) -> dict:
+    """gqa_decode against its plain version and the library's attention at
+    one shape; every row of ``length`` is S, as the library call takes no
+    lengths."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
+    b, hkv, g, d = q.shape
+    err = check_deploy(name, q, k, v, length)
+    kernel_ms = time_cuda(lambda: gqa_decode(q, k, v, length),
+                          flush=flush.zero_)
+    plain_ms = time_cuda(lambda: gqa_decode_ref(q, k, v, length), n=5,
+                         flush=flush.zero_)
+    qs, kt, vt = q.reshape(b, hkv * g, 1, d), k.transpose(1, 2), \
+        v.transpose(1, 2)
+
+    def library():
+        return F.scaled_dot_product_attention(qs, kt, vt, enable_gqa=True)
+    lib = library()
+    lib_err = float((lib.reshape(q.shape).float()
+                     - gqa_decode(q, k, v, length).float()).abs().max())
+    library_ms = time_cuda(library, flush=flush.zero_)
+    # the dispatcher's own choice: on an H100 the profiler records no
+    # device activity for this call
+    library_backend = SDPBackend(torch._fused_sdp_choice(
+        qs, kt, vt, None, 0.0, False, scale=None, enable_gqa=True)).name
+    rows = int(length.clamp(max=k.shape[1]).sum())
+    bound_ms, bound_by, nbytes = decode_bound(rows, hkv, g, d, b,
+                                              q.element_size(), bw, flops)
+    return dict(shape=[b, k.shape[1], hkv, d], g=g, max_abs_err=err,
+                kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_max_abs_diff=lib_err,
+                library_call="F.scaled_dot_product_attention(enable_gqa="
+                             "True), equal lengths",
+                library_backend=library_backend,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                share_of_bound=bound_ms / kernel_ms,
+                tolerance=f"|d| <= {DEPLOY_RTOL} |want| + {DEPLOY_FLOOR} "
+                          f"rms(want); refuses half the positions and zeros")
+
+
+def phase_decode_deploy(dev, bw, flops, cfg=None, b: int = DEPLOY_B,
+                        s: int = DEPLOY_S, lens=DEPLOY_LENS,
+                        steps: int = DEPLOY_STEPS, s_long=None) -> dict:
+    import torch
+    from repro_torch.configs.lm_family import SHAPES, get_config
+    from repro_torch.kernels.gqa_decode import gqa_decode
+    from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
+    from repro_torch.models.transformer import (decode_step, init_cache,
+                                                init_params)
+    cfg = cfg or get_config(LM_ARCH)
+    s_long = s_long or SHAPES["long_500k"]["seq"]
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    model = init_params(cfg, gen, dev)
+    cache = init_cache(cfg, b, s, dev)
+    for key in ("k", "v"):
+        for layer in cache[key]:
+            layer.normal_(generator=gen)
+    rng = np.random.default_rng(SEED + 17)
+    lengths = rng.integers(lens[0], lens[1] + 1, size=b)
+    cache["length"].copy_(torch.from_numpy(lengths.astype(np.int32)))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, size=(
+        steps + 2, b))).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters()) \
+        - model.embed.numel() * model.embed.element_size()
+    hkv, g, d = cfg.n_kv_heads, cfg.group_size, cfg.head_dim
+    dt = cfg.torch_dtype
+    elt = cache["k"].element_size()
+
+    for i in range(2):                       # warm-up
+        decode_step(model, cache, tokens[i])
+    torch.cuda.synchronize()
+    kv_rows, ms = 0, []
+    gqa_kernel.launches = 0
+    for i in range(2, steps + 2):
+        kv_rows += int(torch.clamp(cache["length"] + 1, max=s).sum())
+        t0 = time.perf_counter()
+        logits, _ = decode_step(model, cache, tokens[i])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = gqa_kernel.launches
+    check(launches == _expected_launches(dev, cfg.n_layers * steps),
+          f"gqa_decode launched {launches} times in {steps} steps")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits at 32k")
+    kv_bytes = 2 * cfg.n_layers * (kv_rows / steps) * hkv * d * elt
+    step_bound_ms = 1e3 * (weight_bytes + kv_bytes) / bw
+    busy = device_busy(lambda: [decode_step(model, cache, tokens[i])
+                                for i in range(3)])
+    step = dict(shape=[b, s], lengths=lengths.tolist(),
+                setup_s=setup_s, steps=steps,
+                ms_per_step_median=float(np.median(ms)),
+                ms_per_step_mean=float(np.mean(ms)),
+                step_bound_ms=step_bound_ms, weight_gb=weight_bytes / 1e9,
+                kv_gb=kv_bytes / 1e9, launches=launches,
+                profiled_3_steps=busy,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    emit("decode_deploy_step", **step)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    q = torch.randn((b, hkv, g, d), generator=gen, device=dev,
+                    dtype=torch.float32).to(dt)
+    # layer 0 drawn anew from the seed: the steps wrote model rows of
+    # scores far above the seeded ones, which would decide the output alone
+    k0, v0 = cache["k"][0].normal_(generator=gen), \
+        cache["v"][0].normal_(generator=gen)
+    full = torch.full((b,), s, dtype=torch.int32, device=dev)
+    rows = {"32k": time_decode_kernel("32k", q, k0, v0, full, bw, flops,
+                                      flush)}
+    cached = cache["length"].clone()        # the seeded lengths, stepped
+    rows["32k"]["cache_lengths"] = dict(
+        lengths=cached.tolist(),
+        max_abs_err=check_deploy("32k at the cache's lengths", q, k0, v0,
+                                 cached),
+        kernel_ms=time_cuda(lambda: gqa_decode(q, k0, v0, cached),
+                            flush=flush.zero_),
+        bound_ms=decode_bound(int(torch.clamp(cached, max=s).sum()),
+                              hkv, g, d, b, elt, bw, flops)[0])
+    emit("decode_deploy_kernel", case="32k", **rows["32k"])
+    del cache, model, k0, v0, q
+    gc.collect()
+    torch.cuda.empty_cache()
+    kv = [torch.empty((1, s_long, hkv, d), dtype=dt, device=dev)
+          .normal_(generator=gen) for _ in range(2)]
+    q = torch.randn((1, hkv, g, d), generator=gen, device=dev,
+                    dtype=torch.float32).to(dt)
+    full = torch.full((1,), s_long, dtype=torch.int32, device=dev)
+    rows["500k"] = time_decode_kernel("500k", q, kv[0], kv[1], full, bw,
+                                      flops, flush)
+    emit("decode_deploy_kernel", case="500k", **rows["500k"])
+    del kv, q, flush
+    torch.cuda.empty_cache()
+    return {"step": step, **rows}
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1142,21 +1611,26 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels import build
 
+    # float32 products in full float32; bfloat16 products reduce in
+    # float32 (no reduced-precision split-K), for the phase 9 comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = nvidia_smi()
     name = torch.cuda.get_device_name(0)
     bw, flops, peaks = card_peaks(name)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    built = build.build(["bm25_blockmax", "interval_join"], verbose=True)
-    build.load("bm25_blockmax")
-    build.load("interval_join")
+    kernels = ["bm25_blockmax", "interval_join", "gqa_decode"]
+    built = build.build(kernels, verbose=True)
+    for k in kernels:
+        build.load(k)
     emit("device", card=smi, kind=name, count=torch.cuda.device_count(),
          torch=torch.__version__, cuda=torch.version.cuda, peaks=peaks,
+         matmul={"allow_tf32": False,
+                 "allow_bf16_reduced_precision_reduction": False},
          build_s=time.perf_counter() - t0,
-         ptxas={k: v["log"].strip().splitlines()[-3:]
-                for k, v in built.items()})
+         ptxas={k: ptxas_summary(v["log"]) for k, v in built.items()})
 
     small_err = phase_kernel_small(dev)
     warren, launches, real_err = phase_main_path(dev, bw, flops)
@@ -1165,9 +1639,14 @@ def main() -> int:
     join_launches = phase_structured(dev, warren)
     phase_json(dev)
     joins = phase_deploy_join(dev, bw, flops)
+    del warren
+    decode_err = phase_decode_small(dev)
+    lm = phase_lm_serve(dev)
+    deploy = phase_decode_deploy(dev, bw, flops)
 
     r = rows[10]
     j1 = joins["J1"]
+    k32 = deploy["32k"]
     print(json.dumps({"kernels": [{
         "name": "bm25_blockmax", "route": "cuda",
         "source": "src/repro_torch/csrc/bm25_blockmax.cu",
@@ -1192,6 +1671,20 @@ def main() -> int:
         "J2": {k: joins["J2"][k] for k in (
             "shape", "mode", "kernel_ms", "plain_ms", "library_ms",
             "bound_ms", "bound_by")},
+    }, {
+        "name": "gqa_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/gqa_decode.cu",
+        "replaces": "src/repro/kernels/gqa_decode/kernel.py:62",
+        "launches": lm["calls"][0]["launches"],
+        "max_abs_err": max(decode_err, *(deploy[c]["max_abs_err"]
+                                         for c in ("32k", "500k"))),
+        "ms": k32["kernel_ms"], "kernel_ms": k32["kernel_ms"],
+        "plain_ms": k32["plain_ms"], "library_ms": k32["library_ms"],
+        "bound_ms": k32["bound_ms"], "bound_by": k32["bound_by"],
+        "shape": k32["shape"], "g": k32["g"], "dtype": "bfloat16",
+        "500k": {k: deploy["500k"][k] for k in (
+            "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

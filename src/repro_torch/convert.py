@@ -1,19 +1,27 @@
-"""Carry committed index state across: segment records → a DynamicIndex.
+"""Carry state across from the JAX package.
 
-A record is the plain-dict durable form of one committed segment
-(``Segment.to_record()``: ints, bytes, str and lists, vByte gap-coded
-postings).  Both packages write and read the same form, so an index built
-elsewhere serves here from the same committed state, at the same
-addresses.
+- Committed index state: segment records → a DynamicIndex.  A record is
+  the plain-dict durable form of one committed segment
+  (``Segment.to_record()``: ints, bytes, str and lists, vByte gap-coded
+  postings).  Both packages write and read the same form, so an index
+  built elsewhere serves here from the same committed state, at the same
+  addresses.
+- Transformer weights: the JAX package's parameters as numpy arrays → a
+  :class:`~repro_torch.models.transformer.Transformer`.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Mapping, Optional
+
+import numpy as np
+import torch
 
 from repro_torch.core.featurizer import Featurizer
 from repro_torch.core.index import DynamicIndex, Segment
 from repro_torch.core.tokenizer import Tokenizer
+from repro_torch.models.transformer import (Transformer, TransformerConfig,
+                                            layer_shapes)
 
 
 def index_from_records(records: Iterable[dict],
@@ -38,3 +46,54 @@ def index_from_records(records: Iterable[dict],
         index._next_seq = segments[-1].seqnum + 1
         index._next_addr = max(s.base + s.length for s in segments)
     return index
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A numpy array as a tensor, bit for bit.  JAX hands bfloat16 over as
+    ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy`` refuses: their
+    bits are reinterpreted through int16 instead (no ``ml_dtypes``
+    import)."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:        # JAX hands over read-only buffers
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+@torch.no_grad()
+def transformer_from_jax(params: Mapping, cfg: TransformerConfig,
+                         device=None) -> Transformer:
+    """The JAX package's transformer parameters → the port's model.
+
+    ``params`` is the nested dict that ``jax.tree.map(np.asarray, params)``
+    gives: ``embed`` [V, D], ``layers`` (each leaf stacked along a leading
+    [L] axis), ``final_norm`` [D], ``lm_head`` [D, V].  Both packages keep
+    weights as ``[in, out]``, so each leaf is copied, not transposed, one
+    layer at a time, bit for bit; every leaf must already have the
+    config's dtype.
+    """
+    model = Transformer(cfg, device)
+    want = layer_shapes(cfg)
+    layers = params["layers"]
+    if set(layers) != set(want):
+        raise ValueError(f"layer leaves {sorted(layers)} do not match the "
+                         f"config's {sorted(want)}")
+
+    def copy(dst: torch.Tensor, src: np.ndarray, name: str):
+        t = _tensor(src)
+        if t.dtype != dst.dtype or tuple(t.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: got {t.dtype} {tuple(t.shape)}, the "
+                             f"config needs {dst.dtype} {tuple(dst.shape)}")
+        dst.copy_(t)
+
+    for name, shape in want.items():
+        leaf = layers[name]
+        if leaf.shape != (cfg.n_layers,) + shape:
+            raise ValueError(f"layers.{name} has shape {leaf.shape}, the "
+                             f"config needs {(cfg.n_layers,) + shape}")
+        for i, layer in enumerate(model.layers):
+            copy(getattr(layer, name), leaf[i], f"layers.{name}[{i}]")
+    for name in ("embed", "final_norm", "lm_head"):
+        copy(getattr(model, name), params[name], name)
+    return model

@@ -1,13 +1,42 @@
-"""Serving launcher: index a seeded corpus, then serve BM25 queries.
+"""Serving launcher: BM25 retrieval over a seeded corpus, or LM decode.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --docs 1000
   PYTHONPATH=src python -m repro_torch.launch.serve --docs 1000 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
+      --arch qwen2.5-14b --tokens 8 --device cpu
 
-Scores on the card unless ``--device cpu`` is given.
+``--mode retrieval`` (the default) indexes ``--docs`` seeded documents and
+serves BM25 queries; ``--mode lm`` decodes four prompts through
+``LMServer`` with the smoke config of ``--arch`` and random weights from
+``--seed``.  Runs on the card unless ``--device cpu`` is given.
 """
 
 import argparse
 import time
+
+
+def serve_lm(args):
+    import torch
+
+    from repro_torch.configs.lm_family import get_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import LMServer
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    model = init_params(cfg, gen, dev)
+    server = LMServer(model, max_slots=4, max_len=64, device=dev)
+    prompts = [[1, 5, 9], [2, 7], [3, 3, 3, 3], [4]]
+    t0 = time.time()
+    outs = server.generate(prompts, max_new=args.tokens)
+    dt = time.time() - t0
+    total = sum(len(o) for o in outs)
+    print(f"decoded {total} tokens for {len(prompts)} sequences on {dev} in "
+          f"{dt:.2f}s ({total / dt:.1f} tok/s, continuous batching)")
+    for p, o in zip(prompts, outs):
+        print(f"  prompt {p} -> {o[:8]}")
 
 
 def serve_retrieval(args):
@@ -37,11 +66,22 @@ def serve_retrieval(args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--docs", type=int, default=1000)
+    ap.add_argument("--mode", choices=["retrieval", "lm"],
+                    default="retrieval")
+    ap.add_argument("--docs", type=int, default=1000,
+                    help="retrieval mode: documents to index")
+    ap.add_argument("--arch", default="internlm2-1.8b",
+                    help="lm mode: the config whose smoke config decodes")
+    ap.add_argument("--tokens", type=int, default=8,
+                    help="lm mode: new tokens per prompt")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
-                    help="torch device to score on (default: cuda)")
-    serve_retrieval(ap.parse_args(argv))
+                    help="torch device to run on (default: cuda)")
+    args = ap.parse_args(argv)
+    if args.mode == "lm":
+        serve_lm(args)
+    else:
+        serve_retrieval(args)
 
 
 if __name__ == "__main__":

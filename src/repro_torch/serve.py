@@ -1,4 +1,5 @@
-"""Serving loop: dynamic request batching + the first-stage BM25 retriever.
+"""Serving loops: the first-stage BM25 retriever with dynamic request
+batching, and greedy LM decode with continuous batching.
 
 RetrievalServer serves ranked retrieval straight from an annotative index
 (the paper's workload).  Each micro-batch runs in three steps:
@@ -12,6 +13,10 @@ RetrievalServer serves ranked retrieval straight from an annotative index
 The server runs on the card unless the caller passes ``device="cpu"``.
 Sharded warrens (objects with ``map_groups``) are not served by this
 package yet and are refused.
+
+LMServer decodes a batch of prompts greedily through the transformer's
+``decode_step`` (whose attention is the ``gqa_decode`` kernel), also on the
+card unless asked for the CPU.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from repro_torch import obs
 from repro_torch.core import collection_stats, ranking
 from repro_torch.core.vectorized import bm25_topk
 from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
 
 
 @dataclasses.dataclass
@@ -370,3 +376,65 @@ class RetrievalServer:
 
     def close(self):
         self.batcher.close()
+
+
+class LMServer:
+    """Continuous-batching greedy decode over the transformer decode path.
+
+    ``model`` is a :class:`~repro_torch.models.transformer.Transformer` on
+    ``device`` (``None`` means the card).  ``max_slots`` sequences decode
+    together against one KV cache of ``max_len`` positions.
+    """
+
+    def __init__(self, model: T.Transformer, max_slots: int = 8,
+                 max_len: int = 128, device=None):
+        self.device = resolve_device(device)
+        mdev = model.device
+        if mdev.type != self.device.type or (
+                self.device.index is not None
+                and mdev.index != self.device.index):
+            raise ValueError(f"the model is on {mdev}, the server on "
+                             f"{self.device}")
+        self.model = model
+        self.cfg = model.cfg
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.cache: Optional[Dict[str, torch.Tensor]] = None
+
+    def step(self, tokens: torch.Tensor) -> torch.Tensor:
+        """One decode step of every slot: tokens [max_slots] → logits
+        [max_slots, V]; the cache advances in place."""
+        logits, self.cache = T.decode_step(self.model, self.cache, tokens)
+        return logits
+
+    def generate(self, prompts: List[List[int]], max_new: int = 16
+                 ) -> List[List[int]]:
+        """Greedy-decode a batch of prompts (token-id lists).
+
+        The prompts prefill by stepping their tokens one at a time; slots
+        beyond ``len(prompts)`` step token 0.  Ties in the argmax go to the
+        lowest token id, as in JAX.
+        """
+        if len(prompts) > self.max_slots:
+            raise ValueError(f"{len(prompts)} prompts for {self.max_slots} "
+                             f"slots")
+        # a fresh KV cache per call: decoding against a previous call's
+        # cache would attend to its keys/values and resume at its length
+        # (the old one goes first, so two are never held)
+        self.cache = None
+        self.cache = T.init_cache(self.cfg, self.max_slots, self.max_len,
+                                  self.device)
+        outs: List[List[int]] = [[] for _ in prompts]
+        tokens = np.zeros((self.max_slots,), np.int64)
+        max_prompt = max(len(p) for p in prompts)
+        for i in range(max_prompt + max_new):
+            for s, p in enumerate(prompts):
+                if i < len(p):
+                    tokens[s] = p[i]
+            logits = self.step(torch.tensor(tokens, device=self.device))
+            nxt = logits.argmax(-1).cpu().numpy()
+            for s, p in enumerate(prompts):
+                if i >= len(p) - 1:       # past the prompt: greedy decode
+                    outs[s].append(int(nxt[s]))
+                    tokens[s] = int(nxt[s])
+        return [o[:max_new] for o in outs]

@@ -8,6 +8,8 @@ machine with PyTorch alone.
 """
 
 import os
+import sys
+from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -16,16 +18,24 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402  (the repository root's card script)
+from repro_torch.configs.lm_family import get_config
 from repro_torch.core.annotation import reduce_minimal
 from repro_torch.core.vectorized import (bm25_topk, contained_in, pack,
                                          stable_topk)
 from repro_torch.kernels.bm25_blockmax import (blockmax_scores,
                                                bm25_blockmax_topk,
                                                bm25_topk_ref, kernel, ref)
+from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
+from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
 from repro_torch.kernels.interval_join import (contained_in_mask_ref,
                                                containing_mask_ref,
                                                interval_join)
 from repro_torch.kernels.interval_join import kernel as join_kernel
+from repro_torch.models import transformer as TT
+from repro_torch.serve import LMServer
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +193,90 @@ def test_vectorized_contained_in_on_card_matches_host(cuda_device):
     want = contained_in(*host[0], *host[1][:2])
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+# ------------------------------------------------------------------ #
+# gqa_decode
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("case", chip_smoke.DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gqa_decode_equals_plain(cuda_device, case, dtype):
+    """The cases of ``chip_smoke.py``'s ``decode_small``, at the kernel
+    tests' tolerances."""
+    b, hkv, g, d, s, lengths = case
+    rng = np.random.default_rng(b * 100 + s + g)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(dtype) for shape in ((b, hkv, g, d), (b, s, hkv, d),
+                                             (b, s, hkv, d)))
+    if lengths is None:
+        lengths = rng.integers(1, s + 1, size=b)
+    length = torch.tensor(lengths, dtype=torch.int32)
+    host = gqa_decode_ref(q, k, v, length)
+    args = [x.to(cuda_device) for x in (q, k, v, length)]
+    before = gqa_kernel.launches
+    got = gqa_decode(*args)
+    assert gqa_kernel.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = chip_smoke.DECODE_TOL[str(dtype).split(".")[-1]]
+    for want in (gqa_decode_ref(*args), host.to(cuda_device)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert not got[i].any()
+
+
+def test_gqa_decode_rejects_misaligned(cuda_device):
+    buf = torch.zeros(2 * 2 * 5 * 16 + 1, device=cuda_device)
+    q = buf[1:].view(2, 2, 5, 16)                  # contiguous, 4 B off
+    k = torch.zeros(2, 8, 2, 16, device=cuda_device)
+    n = torch.ones(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        gqa_decode(q, k, k, n)
+
+
+def test_decode_step_on_card_runs_the_kernel_only(cuda_device, monkeypatch):
+    """n_layers launches a step, and never the plain version."""
+    def no_plain(*args):
+        raise AssertionError("decode_step on the card took the plain "
+                             "version")
+    monkeypatch.setattr(gqa_kernel, "gqa_decode_ref", no_plain)
+    cfg = get_config("qwen2.5-14b", smoke=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    model = TT.init_params(cfg, gen, cuda_device)
+    cache = TT.init_cache(cfg, 3, 16, device=cuda_device)
+    before = gqa_kernel.launches
+    for step in range(5):
+        toks = torch.tensor([1, 2, 3], device=cuda_device) + step
+        logits, _ = TT.decode_step(model, cache, toks)
+    torch.cuda.synchronize()
+    assert gqa_kernel.launches == before + 5 * cfg.n_layers
+    assert bool(torch.isfinite(logits).all())
+    assert cache["length"].tolist() == [5, 5, 5]
+
+
+def test_lmserver_on_card_matches_host(cuda_device):
+    """The same float32 weights on the card and on the host: equal logits
+    within 2e-4 (the CPU parity tolerance) at every step, equal tokens."""
+    cfg = get_config("internlm2-1.8b", smoke=True)
+    host = TT.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    card = TT.Transformer(cfg, cuda_device)
+    card.load_state_dict(host.state_dict())
+    logs = {}
+    outs = {}
+    prompts = [[5, 9, 2, 11, 40], [7, 4], [300, 1, 2]]
+    for name, model, dev in (("host", host, "cpu"),
+                             ("card", card, cuda_device)):
+        server = LMServer(model, max_slots=4, max_len=16, device=dev)
+        logs[name] = []
+        step = server.step
+
+        def recording(tokens, step=step, log=logs[name]):
+            out = step(tokens)
+            log.append(out.cpu())
+            return out
+        server.step = recording
+        outs[name] = server.generate(prompts, max_new=5)
+    assert outs["card"] == outs["host"]
+    for a, b in zip(logs["card"], logs["host"]):
+        torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
