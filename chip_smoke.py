@@ -7,7 +7,7 @@ Phases, one JSON line each; any failure raises and the script exits
 non-zero:
 
 0. device: the card, its power limit, the matmul precision settings, and
-   the three kernels' builds (set-up time; one nvcc for each source,
+   the four kernels' builds (set-up time; one nvcc for each source,
    started together) with their registers and spills;
 1. the bm25_blockmax kernel against its plain version at the small shapes
    of the kernel tests (sweep, empty lists, one element, the θ tie
@@ -62,7 +62,32 @@ non-zero:
    cache's lengths) and at long_500k's [1, 524288, 8, 128], checked
    against its plain version with a tolerance scaled to the output and
    timed against it, ``scaled_dot_product_attention`` and its bound;
-11. the kernels line; the last line is ``{"ok": true, "device": ...}``.
+11. bag_small: the embedding_bag kernel against its plain version (on the
+   card and on the host) at the reference kernel test's sweep, D = 1, 10
+   and 50, a bag of 33, B = 0, L = 0, all weights 0, ids in [-V, 0), ids
+   out of range (NaN rows), rows wider than one pass, a table off 16
+   bytes, bfloat16 tables — bit for bit; bags of one against ``take``;
+12. recsys_serve, the fourth slice's main path: DLRM-RM2, xDeepFM,
+   two-tower and SASRec at their full configs (about 10 GB of tables,
+   weights drawn on the card from the seed) served through
+   ``recsys_family.serve`` at the serve_p99 batch (512, the synth batch at
+   the seed), two-tower's and SASRec's retrieval_cand (1 × 1,000,000
+   candidates), and SASRec's 512 scoring 64 shared candidates.
+   embedding_bag's launch count is zeroed just before each call and read
+   just after (1, 2, 2-3, 1-2 a call).  Each output is held against the
+   same function on the CPU over only the rows its batch reads (4,096
+   seeded candidates for retrieval_cand), within RECSYS_RATIO × the host's
+   float32-vs-float64 distance; SASRec's all-zero score rows (fault (i))
+   must be the host's.  ms per call, examples/s, peak memory, the idle
+   share of a profiled window of 3 calls and the kernel's share of its
+   device time;
+13. bag_deploy: the kernel at serve_bulk's 262,144 — two-tower's history
+   bag [262144, 8] over the 1 M × 256 item table (uniform and Zipf ids)
+   and DLRM's field lookup (262,144 × 26 bags of one over [26 M, 64]) —
+   bit for bit against its plain version, timed against it, the one
+   PyTorch call (``F.embedding_bag``, ``F.embedding``) and the bound over
+   distinct rows;
+14. the kernels line; the last line is ``{"ok": true, "device": ...}``.
 
 It needs a CUDA card and the repository's ``src/`` beside it, and exits
 non-zero without a result otherwise.
@@ -1598,6 +1623,451 @@ def phase_decode_deploy(dev, bw, flops, cfg=None, b: int = DEPLOY_B,
 
 
 # --------------------------------------------------------------------- #
+# phase 11: embedding_bag against its plain version at small shapes
+# --------------------------------------------------------------------- #
+# (name, V, D, B, L, dtype, ids): the reference kernel test's sweep, then
+# D = 1 (xDeepFM's linear table), D = 10 (its embedding), D = 50
+# (SASRec's), a bag of 33 (two rounds of the warp's 32 ids), B = 0,
+# L = 0, all weights 0, ids in [-V, V), ids out of range (NaN rows),
+# rows wider than one pass (scalar and vector), a table off 16 bytes
+# (scalar loads), and bfloat16 tables.  ids: "uniform" in [0, V), "wrap"
+# in [-V, V), "bad" with a fifth outside [-V, V).
+BAG_CASES = [
+    ("sweep_100x32", 100, 32, 8, 5, "float32", "uniform"),
+    ("sweep_1000x64", 1000, 64, 16, 20, "float32", "uniform"),
+    ("sweep_64x128", 64, 128, 4, 3, "float32", "uniform"),
+    ("d1", 50, 1, 7, 4, "float32", "uniform"),
+    ("d10", 100, 10, 9, 6, "float32", "uniform"),
+    ("d50_l33", 200, 50, 5, 33, "float32", "uniform"),
+    ("b0", 100, 32, 0, 5, "float32", "uniform"),
+    ("l0", 100, 32, 6, 0, "float32", "uniform"),
+    ("zero_weights", 100, 32, 6, 5, "float32", "uniform"),
+    ("negative_ids", 30, 16, 8, 6, "float32", "wrap"),
+    ("out_of_range_ids", 30, 16, 8, 6, "float32", "bad"),
+    ("d600_vec_2_passes", 300, 600, 5, 7, "float32", "uniform"),
+    ("d130_scalar_2_passes", 300, 130, 5, 7, "float32", "uniform"),
+    ("table_off_16_bytes", 100, 64, 8, 5, "float32", "uniform"),
+    ("bf16_d64", 500, 64, 12, 8, "bfloat16", "uniform"),
+    ("bf16_d10", 500, 10, 12, 8, "bfloat16", "uniform"),
+    ("bf16_d1032_2_passes", 50, 1032, 3, 4, "bfloat16", "wrap"),
+    ("bf16_out_of_range", 40, 24, 5, 6, "bfloat16", "bad"),
+]
+
+
+def bag_case(name, v, d, b, l, dtype, ids):
+    """Seeded (table [V, D], indices [B, L] int32, weights [B, L] f32) on
+    the host."""
+    import torch
+    rng = np.random.default_rng(v * 31 + d * 7 + b + l)
+    table = torch.from_numpy(rng.standard_normal((v, d)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    lo = -v if ids in ("wrap", "bad") else 0
+    idx = rng.integers(lo, v, size=(b, l))
+    if ids == "bad":
+        bad = rng.random((b, l)) < 0.2
+        idx = np.where(bad, np.where(rng.random((b, l)) < 0.5, v + idx % 7,
+                                     -v - 1 - idx % 7), idx)
+    w = (rng.random((b, l)) < 0.8).astype(np.float32)
+    if name == "zero_weights":
+        w[:] = 0.0
+    return (table, torch.from_numpy(idx.astype(np.int32)),
+            torch.from_numpy(w))
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits, with every NaN taken as one NaN."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return torch.equal(torch.where(na, 0, a).view(view),
+                       torch.where(nb, 0, b).view(view))
+
+
+def _off_16(table, dev):
+    """``table`` on ``dev`` at a data pointer 4 bytes past 16-byte
+    alignment (contiguous)."""
+    import torch
+    buf = torch.empty(table.numel() + 1, dtype=table.dtype, device=dev)
+    buf[1:] = table.reshape(-1).to(dev)
+    out = buf[1:].view(table.shape)
+    check(out.data_ptr() % 16 != 0, "the offset table is aligned")
+    return out
+
+
+def phase_bag_small(dev) -> float:
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_padded_ref,
+                                                   kernel, take)
+    cuda = torch.device(dev).type == "cuda"
+    rows = []
+    for case in BAG_CASES:
+        name = case[0]
+        table, idx, w = bag_case(*case)
+        host = embedding_bag_padded_ref(table, idx, w)
+        t = _off_16(table, dev) if name == "table_off_16_bytes" \
+            else table.to(dev)
+        i, ww = idx.to(dev), w.to(dev)
+        before = kernel.launches
+        got = embedding_bag(t, i, ww)
+        launched = kernel.launches - before
+        check(launched == int(cuda and idx.shape[0] > 0),
+              f"{name}: {launched} launches")
+        want = embedding_bag_padded_ref(t, i, ww)
+        check(same_bits(got, want) and same_bits(got.cpu(), host),
+              f"embedding_bag {name}: differs from the plain version")
+        check(bool(torch.isnan(got).any()) == (case[6] == "bad"),
+              f"{name}: NaN rows where no id is out of range, or none")
+        # bags of one of weight 1 are take, exactly
+        flat = i.reshape(-1, 1)
+        one = embedding_bag(t, flat, torch.ones(flat.shape,
+                                                dtype=torch.float32,
+                                                device=t.device))
+        check(same_bits(one, take(t, flat[:, 0])),
+              f"{name}: bags of one differ from take")
+        rows.append(name)
+    _sync(dev)
+    emit("bag_small", cases=rows, max_abs_err=0.0,
+         tolerance="bit for bit (NaN rows as NaN) against the plain version "
+                   "on the card and on the host, float32 and bfloat16; bags "
+                   "of one bit for bit against take")
+    return 0.0
+
+
+# --------------------------------------------------------------------- #
+# phase 12: recsys serving, the fourth slice's main path
+# --------------------------------------------------------------------- #
+RECSYS_ARCHS = ("dlrm-rm2", "xdeepfm", "two-tower-retrieval", "sasrec")
+RECSYS_TIMED = 10          # calls timed after the checked one
+PROFILED_CALLS = 3         # calls in the profiled window
+RECSYS_SAMPLE = 4096       # retrieval candidates the host recomputes
+SASREC_CANDS = 64          # shared candidates of the scored serve_p99 batch
+# Card and host both round the same sums in float32, in other orders: the
+# card's output may be RECSYS_RATIO times as far from the host's as the
+# host's float32 run is from its float64 run (the CPU tests measured the
+# port's float32 error at up to 4.6 times JAX's, on DLRM's smoke config),
+# plus one float32 ulp of the output's largest entry.
+RECSYS_RATIO = 8.0
+
+
+def recsys_calls(name: str, cfg, batch: int, n_cand: int):
+    """[(cell, numpy batch, launches per call)] that phase 12 serves for
+    ``name``: the serve_p99 batch from the synth generator at the seed;
+    for two-tower and SASRec also retrieval_cand (one query against
+    ``n_cand`` ids cycling over the catalogue); for SASRec also the
+    serve_p99 batch scoring shared candidates (fault (i) shows there)."""
+    from repro_torch.configs.recsys_family import HIST_LEN
+    from repro_torch.data import synth
+    if name == "dlrm-rm2":
+        return [("serve_p99", synth.dlrm_batch(
+            SEED, batch, cfg.n_dense, cfg.n_sparse, cfg.vocab_per_table), 1)]
+    if name == "xdeepfm":
+        return [("serve_p99", synth.xdeepfm_batch(
+            SEED, batch, cfg.n_sparse, cfg.vocab_per_table), 2)]
+    cands = (np.arange(n_cand) % cfg.n_items).astype(np.int32)
+    if name == "two-tower-retrieval":
+        b = synth.twotower_batch(SEED, batch, cfg.n_users, cfg.n_items,
+                                 HIST_LEN)
+        q = synth.twotower_batch(SEED + 1, 1, cfg.n_users, cfg.n_items,
+                                 HIST_LEN)
+        one = {k: q[k] for k in ("user_ids", "hist_ids", "hist_w")}
+        return [("serve_p99", b, 2),
+                ("retrieval_cand", {**one, "cand_ids": cands}, 3)]
+    b = synth.sasrec_batch(SEED, batch, cfg.seq_len, cfg.n_items)
+    q = synth.sasrec_batch(SEED + 1, 1, cfg.seq_len, cfg.n_items)
+    shared = (np.arange(SASREC_CANDS) % cfg.n_items).astype(np.int32)
+    return [("serve_p99", {"item_seq": b["item_seq"]}, 1),
+            ("serve_p99_scored", {"item_seq": b["item_seq"],
+                                  "cand_ids": shared}, 2),
+            ("retrieval_cand", {"item_seq": q["item_seq"],
+                                "cand_ids": cands}, 2)]
+
+
+# table leaves of each architecture, and the batch keys whose ids read them
+RECSYS_TABLES = {
+    "dlrm-rm2": {"tables": ("sparse",)},
+    "xdeepfm": {"tables": ("sparse",), "linear": ("sparse",)},
+    "two-tower-retrieval": {"user_table": ("user_ids",),
+                            "item_table": ("hist_ids", "cand_ids")},
+    "sasrec": {"item_embed": ("item_seq", "cand_ids")},
+}
+RECSYS_VOCAB = {"tables": "vocab_per_table", "linear": "vocab_per_table",
+                "user_table": "n_users", "item_table": "n_items",
+                "item_embed": "n_items"}
+
+
+def host_subset(name: str, model, batch: dict):
+    """The model on the CPU holding only the table rows that ``batch``
+    reads (id 0 always, so SASRec's padding stays 0), and the batch with
+    its ids renumbered into them: the same function of the same numbers on
+    this batch, without a copy of 10 GB of tables."""
+    import dataclasses
+    import torch
+    from repro_torch.models import recsys as R
+    cfg, b, keep, sizes = model.cfg, dict(batch), {}, {}
+    for leaf, keys in RECSYS_TABLES[name].items():
+        keys = [k for k in keys if k in b]
+        uniq = np.unique(np.concatenate(
+            [[0]] + [np.asarray(batch[k]).ravel() for k in keys]))
+        check(0 <= uniq[0] and uniq[-1] < getattr(cfg, RECSYS_VOCAB[leaf]),
+              f"{name}: an id out of range in {keys}")
+        for k in keys:
+            b[k] = np.searchsorted(uniq, batch[k]).astype(np.int32)
+        keep[leaf] = uniq
+        sizes[RECSYS_VOCAB[leaf]] = len(uniq)
+    host = R.make_model(dataclasses.replace(cfg, **sizes), "cpu")
+    with torch.no_grad():
+        for n, p in host.named_parameters():
+            src = model.get_parameter(n)
+            if n in keep:
+                src = src.index_select(src.dim() - 2, torch.from_numpy(
+                    keep[n]).to(src.device))
+            p.copy_(src.cpu())
+    return host, b
+
+
+def recsys_close(got, want, want64) -> dict:
+    """``got`` against the host's float32 ``want`` with the tolerance
+    RECSYS_RATIO × max |want − want64| + one ulp of max |want|."""
+    scale = float(want.abs().max())
+    host_err = float((want.double() - want64).abs().max())
+    tol = RECSYS_RATIO * host_err + float(np.spacing(np.float32(scale)))
+    err = float((got.cpu().double() - want.double()).abs().max())
+    return {"max_abs_err": err, "tolerance": tol, "host_f32_vs_f64": host_err,
+            "scale": scale, "ok": bool(err <= tol and tol <= 1e-3 * scale)}
+
+
+def serve_timed(name, model, batch, dev, n):
+    """Median host-clock ms of ``n`` synchronised serve calls."""
+    from repro_torch.configs.recsys_family import serve
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        serve(name, model, batch)
+        _sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ms))
+
+
+def phase_recsys_serve(dev, smoke: bool = False, batch: int = None,
+                       n_cand: int = None, timed: int = RECSYS_TIMED,
+                       sample: int = RECSYS_SAMPLE) -> dict:
+    import copy
+    import torch
+    from repro_torch.configs.recsys_family import (BATCHES, N_CAND,
+                                                   get_config, serve)
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.models.recsys import init_params
+    cuda = torch.device(dev).type == "cuda"
+    batch = batch or BATCHES["serve_p99"]
+    n_cand = n_cand or N_CAND
+    out = {}
+    for name in RECSYS_ARCHS:
+        cfg = get_config(name, smoke=smoke)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        model = init_params(cfg, gen, dev)
+        _sync(dev)
+        row = {"card": nvidia_smi() if cuda else "cpu",
+               "init_s": time.perf_counter() - t0,
+               "table_gb": sum(p.numel() * p.element_size()
+                               for n, p in model.named_parameters()
+                               if n.split(".")[0] in RECSYS_VOCAB) / 1e9,
+               "cells": {}}
+        for cell, np_batch, per_call in recsys_calls(name, cfg, batch,
+                                                      n_cand):
+            _sync(dev)
+            bag_kernel.launches = 0                 # the slice's main path
+            got = serve(name, model, np_batch)
+            _sync(dev)
+            launches = bag_kernel.launches          # ends here
+            check(launches == (per_call if cuda else 0),
+                  f"{name} {cell}: embedding_bag launched {launches} times, "
+                  f"expected {per_call}")
+            check(bool(torch.isfinite(got).all()),
+                  f"{name} {cell}: non-finite output")
+            host_batch = dict(np_batch)
+            cols = None
+            if cell == "retrieval_cand":
+                rng = np.random.default_rng(SEED + 3)
+                cols = np.sort(rng.choice(len(np_batch["cand_ids"]),
+                                          size=min(sample, len(
+                                              np_batch["cand_ids"])),
+                                          replace=False))
+                host_batch["cand_ids"] = np_batch["cand_ids"][cols]
+                got_cmp = got[:, torch.from_numpy(cols).to(got.device)]
+            else:
+                got_cmp = got
+            host, sub = host_subset(name, model, host_batch)
+            want = serve(name, host, sub)
+            want64 = serve(name, copy.deepcopy(host).double(), sub)
+            cmp = recsys_close(got_cmp, want, want64)
+            c = {"batch": int(next(iter(np_batch.values())).shape[0]),
+                 "shape": list(got.shape), "launches": launches,
+                 "per_call": per_call, **cmp}
+            if name == "sasrec" and "cand_ids" in np_batch:
+                zero = (got == 0).all(-1).cpu()
+                host_zero = (want == 0).all(-1)
+                check(torch.equal(zero, host_zero),
+                      f"sasrec {cell}: all-zero score rows differ from the "
+                      f"host's")
+                c["zero_score_rows"] = float(zero.float().mean())
+                lens = (torch.as_tensor(np_batch["item_seq"]) != 0).sum(-1)
+                c["zero_rows_are_2len_minus_1_lt_S"] = bool(torch.equal(
+                    zero, 2 * lens - 1 < cfg.seq_len))
+            check(cmp["ok"], f"{name} {cell}: {cmp['max_abs_err']} from the "
+                             f"host, tolerance {cmp['tolerance']} (scale "
+                             f"{cmp['scale']})")
+            ms = serve_timed(name, model, np_batch, dev, timed)
+            c.update(ms_per_call=ms, examples_per_s=1e3 * c["batch"] / ms)
+            if cell == "retrieval_cand":
+                c["candidates_per_s"] = 1e3 * got.shape[1] / ms
+            if cuda:
+                # the profiler drops the first kernel of a window now and
+                # then (the bag launch often is that kernel): profile a few
+                # calls and scale the kernel's mean time by its launches
+                events, wall_ms = device_events(lambda: [
+                    serve(name, model, np_batch)
+                    for _ in range(PROFILED_CALLS)])
+                device_ms = sum(e_ms for _, e_ms in events)
+                bag = [e_ms for e, e_ms in events if "embedding_bag" in e]
+                check(bool(bag), f"{name} {cell}: the profiler saw no "
+                                 f"embedding_bag launch")
+                bag_ms = float(np.mean(bag)) * per_call * PROFILED_CALLS
+                c["profiled_calls"] = {
+                    "calls": PROFILED_CALLS, "wall_ms": wall_ms,
+                    "device_ms": device_ms,
+                    "idle_share": 1 - device_ms / wall_ms,
+                    "embedding_bag_events": len(bag),
+                    "embedding_bag_ms": bag_ms}
+                c["kernel_share_of_device"] = bag_ms / device_ms
+            row["cells"][cell] = c
+            del got, got_cmp, host, want, want64
+        if cuda:
+            row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out[name] = row
+        emit("recsys_serve", arch=cfg.name, **row)
+        del model
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phase 13: embedding_bag at deployment width (serve_bulk, 262,144)
+# --------------------------------------------------------------------- #
+BULK = 262_144
+
+
+def bag_bound(ids, d: int, elt: int, bw: float, flops: float):
+    """(bound_ms, bound_by, bytes) of a bag batch: each distinct row read
+    once, ids and weights (4 bytes each) read and the [B, D] output
+    written once, over the memory rate; or its 2·B·L·D float32 operations
+    over the float32 rate."""
+    import torch
+    b, l = ids.shape
+    rows = int(torch.unique(ids).numel())
+    nbytes = rows * d * elt + 8 * b * l + b * d * elt
+    by_bytes = 1e3 * nbytes / bw
+    by_ops = 1e3 * 2 * b * l * d / flops
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes, rows)
+
+
+def bag_deploy_cases(dev, bulk: int = BULK, smoke: bool = False):
+    """{case: (table, ids [B, L] int32, weights [B, L] f32, library)} at
+    two-tower's and DLRM's serve_bulk widths, tables drawn on ``dev`` from
+    the seed: the history bag over the 1 M × 256 item table with the synth
+    batch's Zipf(1.3) ids and with uniform ids, and DLRM's field lookup as
+    bags of one over its 26 tables viewed as [26 M, 64] with Zipf(1.2)
+    ids (field f's ids offset by f·V).  ``library`` computes the same
+    function with one PyTorch call."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs.recsys_family import HIST_LEN, get_config
+    from repro_torch.data import synth
+    tt = get_config("two-tower-retrieval", smoke=smoke)
+    dl = get_config("dlrm-rm2", smoke=smoke)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    items = torch.randn((tt.n_items, tt.embed_dim), generator=gen,
+                        device=dev) * 0.01
+    hist = synth.twotower_batch(SEED, bulk, tt.n_users, tt.n_items, HIST_LEN)
+    w = torch.from_numpy(hist["hist_w"]).to(dev)
+    zipf = torch.from_numpy(hist["hist_ids"]).to(dev)
+    uniform = torch.from_numpy(np.random.default_rng(SEED + 5).integers(
+        0, tt.n_items, size=zipf.shape).astype(np.int32)).to(dev)
+
+    def bag_library(table, ids, w):
+        ids64 = ids.long()
+        return lambda: F.embedding_bag(ids64, table, mode="sum",
+                                       per_sample_weights=w)
+
+    f, v = dl.n_sparse, dl.vocab_per_table
+    tables = torch.empty((f * v, dl.embed_dim), device=dev)
+    for i in range(f):                       # one field at a time
+        tables[i * v:(i + 1) * v].normal_(0.0, 0.01, generator=gen)
+    sparse = synth.dlrm_batch(SEED, bulk, dl.n_dense, f, v)["sparse"]
+    flat = torch.from_numpy((sparse + np.arange(f) * v).astype(np.int32)
+                            .reshape(-1, 1)).to(dev)
+    ones = torch.ones(flat.shape, device=dev)
+    flat64 = flat[:, 0].long()
+    return {
+        "uniform": (items, uniform, w, bag_library(items, uniform, w)),
+        "zipf": (items, zipf, w, bag_library(items, zipf, w)),
+        "dlrm": (tables, flat, ones, lambda: F.embedding(flat64, tables)),
+    }
+
+
+def phase_bag_deploy(dev, bw, flops, bulk: int = BULK) -> dict:
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                                   embedding_bag_padded_ref)
+    t0 = time.perf_counter()
+    cases = bag_deploy_cases(dev, bulk)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+    for case, (table, ids, w, library) in cases.items():
+        got = embedding_bag(table, ids, w)
+        check(same_bits(got, embedding_bag_padded_ref(table, ids, w)),
+              f"bag_deploy {case}: differs from the plain version")
+        lib = library()
+        lib_err = float((lib.reshape(got.shape) - got).abs().max())
+        del got, lib
+        kernel_ms = time_cuda(lambda: embedding_bag(table, ids, w),
+                              flush=flush.zero_)
+        plain_ms = time_cuda(lambda: embedding_bag_padded_ref(table, ids, w),
+                             flush=flush.zero_)
+        library_ms = time_cuda(library, flush=flush.zero_)
+        bound_ms, bound_by, nbytes, distinct = bag_bound(
+            ids, table.shape[1], table.element_size(), bw, flops)
+        rows[case] = dict(
+            card=nvidia_smi(), table=list(table.shape), shape=list(ids.shape),
+            distinct_rows=distinct, max_abs_err=0.0, kernel_ms=kernel_ms,
+            plain_ms=plain_ms, library_ms=library_ms,
+            library_call=("F.embedding" if case == "dlrm" else
+                          "F.embedding_bag(mode='sum', per_sample_weights)"),
+            library_max_abs_diff=lib_err, bound_ms=bound_ms,
+            bound_by=bound_by, bytes=nbytes,
+            share_of_bound=bound_ms / kernel_ms)
+        emit("bag_deploy", case=case, setup_s=setup_s, **rows[case])
+    del cases, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# --------------------------------------------------------------------- #
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1621,7 +2091,8 @@ def main() -> int:
     bw, flops, peaks = card_peaks(name)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    kernels = ["bm25_blockmax", "interval_join", "gqa_decode"]
+    kernels = ["bm25_blockmax", "interval_join", "gqa_decode",
+               "embedding_bag"]
     built = build.build(kernels, verbose=True)
     for k in kernels:
         build.load(k)
@@ -1643,10 +2114,14 @@ def main() -> int:
     decode_err = phase_decode_small(dev)
     lm = phase_lm_serve(dev)
     deploy = phase_decode_deploy(dev, bw, flops)
+    bag_err = phase_bag_small(dev)
+    recsys = phase_recsys_serve(dev)
+    bags = phase_bag_deploy(dev, bw, flops)
 
     r = rows[10]
     j1 = joins["J1"]
     k32 = deploy["32k"]
+    bag = bags["uniform"]
     print(json.dumps({"kernels": [{
         "name": "bm25_blockmax", "route": "cuda",
         "source": "src/repro_torch/csrc/bm25_blockmax.cu",
@@ -1685,6 +2160,21 @@ def main() -> int:
         "500k": {k: deploy["500k"][k] for k in (
             "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")},
+    }, {
+        "name": "embedding_bag", "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:38",
+        "launches": sum(c["launches"] for r in recsys.values()
+                        for c in r["cells"].values()),
+        "max_abs_err": max(bag_err, *(r["max_abs_err"]
+                                      for r in bags.values())),
+        "ms": bag["kernel_ms"], "kernel_ms": bag["kernel_ms"],
+        "plain_ms": bag["plain_ms"], "library_ms": bag["library_ms"],
+        "bound_ms": bag["bound_ms"], "bound_by": bag["bound_by"],
+        "shape": bag["shape"], "table": bag["table"], "ids": "uniform",
+        **{case: {k: bags[case][k] for k in (
+            "shape", "table", "kernel_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by")} for case in ("zipf", "dlrm")},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

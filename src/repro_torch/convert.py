@@ -8,6 +8,8 @@
   addresses.
 - Transformer weights: the JAX package's parameters as numpy arrays → a
   :class:`~repro_torch.models.transformer.Transformer`.
+- Recsys weights: the same for DLRM, xDeepFM, two-tower and SASRec →
+  the modules of :mod:`repro_torch.models.recsys`.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from repro_torch.core.featurizer import Featurizer
 from repro_torch.core.index import DynamicIndex, Segment
 from repro_torch.core.tokenizer import Tokenizer
+from repro_torch.models import recsys
 from repro_torch.models.transformer import (Transformer, TransformerConfig,
                                             layer_shapes)
 
@@ -61,6 +64,14 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _copy(dst: torch.Tensor, src: np.ndarray, name: str):
+    t = _tensor(src)
+    if t.dtype != dst.dtype or tuple(t.shape) != tuple(dst.shape):
+        raise ValueError(f"{name}: got {t.dtype} {tuple(t.shape)}, the "
+                         f"config needs {dst.dtype} {tuple(dst.shape)}")
+    dst.copy_(t)
+
+
 @torch.no_grad()
 def transformer_from_jax(params: Mapping, cfg: TransformerConfig,
                          device=None) -> Transformer:
@@ -79,21 +90,51 @@ def transformer_from_jax(params: Mapping, cfg: TransformerConfig,
     if set(layers) != set(want):
         raise ValueError(f"layer leaves {sorted(layers)} do not match the "
                          f"config's {sorted(want)}")
-
-    def copy(dst: torch.Tensor, src: np.ndarray, name: str):
-        t = _tensor(src)
-        if t.dtype != dst.dtype or tuple(t.shape) != tuple(dst.shape):
-            raise ValueError(f"{name}: got {t.dtype} {tuple(t.shape)}, the "
-                             f"config needs {dst.dtype} {tuple(dst.shape)}")
-        dst.copy_(t)
-
     for name, shape in want.items():
         leaf = layers[name]
         if leaf.shape != (cfg.n_layers,) + shape:
             raise ValueError(f"layers.{name} has shape {leaf.shape}, the "
                              f"config needs {(cfg.n_layers,) + shape}")
         for i, layer in enumerate(model.layers):
-            copy(getattr(layer, name), leaf[i], f"layers.{name}[{i}]")
+            _copy(getattr(layer, name), leaf[i], f"layers.{name}[{i}]")
     for name in ("embed", "final_norm", "lm_head"):
-        copy(getattr(model, name), params[name], name)
+        _copy(getattr(model, name), params[name], name)
+    return model
+
+
+def _flatten(tree, prefix: str = ""):
+    """(dotted name, leaf) of a nested dict/list pytree: ``bot.0.w``."""
+    if isinstance(tree, Mapping):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        yield prefix, tree
+        return
+    for k, v in items:
+        yield from _flatten(v, f"{prefix}.{k}" if prefix else str(k))
+
+
+@torch.no_grad()
+def recsys_from_jax(params: Mapping, cfg, device=None) -> recsys._Recsys:
+    """The JAX package's recsys parameters → the port's model of ``cfg``.
+
+    ``params`` is the pytree that ``jax.tree.map(np.asarray, params)``
+    gives for the config's architecture: DLRM ``tables``, ``bot``/``top``
+    as lists of ``{w, b}``; xDeepFM ``tables``, ``cin`` (a list),
+    ``cin_out``, ``mlp``, ``linear``; two-tower ``user_table``,
+    ``item_table``, ``user_tower``, ``item_tower``; SASRec ``item_embed``,
+    ``pos_embed`` and ``blocks`` (each leaf stacked on [n_blocks]).  Both
+    packages keep weights as ``[in, out]``, so each leaf is copied bit for
+    bit, not transposed; the leaves must be exactly the model's, each of
+    the config's shape and dtype.
+    """
+    model = recsys.make_model(cfg, device)
+    want = dict(model.named_parameters())
+    got = dict(_flatten(params))
+    if set(got) != set(want):
+        raise ValueError(f"leaves {sorted(got)} do not match the config's "
+                         f"{sorted(want)}")
+    for name, p in want.items():
+        _copy(p, got[name], name)
     return model

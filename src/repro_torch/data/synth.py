@@ -1,9 +1,10 @@
-"""Seeded synthetic corpora: Zipfian TREC-like documents and the
-schema-heterogeneous JSON collections of the paper's Fig. 5.
+"""Seeded synthetic data: Zipfian TREC-like documents, the
+schema-heterogeneous JSON collections of the paper's Fig. 5, and the
+recsys batches.
 
-The same seed yields the same documents and objects as the reference
-package's ``doc_generator`` and ``json_collection``, so both index the same
-data.
+The same seed yields the same documents, objects and batches as the
+reference package's ``doc_generator``, ``json_collection`` and
+``*_batch``, so both index and score the same data.
 """
 
 from __future__ import annotations
@@ -72,3 +73,56 @@ def json_collection(seed: int = 0, scale: float = 1.0) -> Dict[str, list]:
     return {"books": books, "zips": zips, "restaurant": restaurants,
             "city_inspections": inspections, "companies": companies,
             "trades": trades}
+
+
+# ------------------------------------------------------------------ #
+# recsys
+# ------------------------------------------------------------------ #
+def dlrm_batch(seed: int, batch: int, n_dense=13, n_sparse=26,
+               vocab=1_000_000) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    return {
+        "dense": rng.standard_normal((batch, n_dense)).astype(np.float32),
+        "sparse": (rng.zipf(1.2, size=(batch, n_sparse)) % vocab).astype(np.int32),
+        "labels": (rng.random(batch) < 0.25).astype(np.float32),
+    }
+
+
+def xdeepfm_batch(seed: int, batch: int, n_sparse=39,
+                  vocab=100_000) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    return {
+        "sparse": (rng.zipf(1.2, size=(batch, n_sparse)) % vocab).astype(np.int32),
+        "labels": (rng.random(batch) < 0.2).astype(np.float32),
+    }
+
+
+def twotower_batch(seed: int, batch: int, n_users=2_000_000, n_items=1_000_000,
+                   hist_len=8) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    item_ids = (rng.zipf(1.2, size=batch) % n_items).astype(np.int32)
+    freq = np.maximum(1.0 / (1.0 + item_ids), 1e-9)
+    return {
+        "user_ids": rng.integers(0, n_users, batch).astype(np.int32),
+        "hist_ids": (rng.zipf(1.3, size=(batch, hist_len)) % n_items).astype(np.int32),
+        "hist_w": (rng.random((batch, hist_len)) < 0.9).astype(np.float32),
+        "item_ids": item_ids,
+        "logq": np.log(freq).astype(np.float32),
+    }
+
+
+def sasrec_batch(seed: int, batch: int, seq_len=50,
+                 n_items=1_000_000) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    seq = (rng.zipf(1.3, size=(batch, seq_len)) % n_items).astype(np.int32)
+    # zero-pad prefixes of random length
+    lens = rng.integers(3, seq_len + 1, batch)
+    mask = np.arange(seq_len)[None, :] >= (seq_len - lens[:, None])
+    seq = np.where(mask, np.maximum(seq, 1), 0).astype(np.int32)
+    pos = np.roll(seq, -1, axis=1)
+    pos[:, -1] = np.maximum(rng.integers(1, n_items, batch), 1)
+    pos = np.where(seq != 0, pos, 0).astype(np.int32)
+    neg = np.where(seq != 0, (rng.zipf(1.3, size=(batch, seq_len)) % n_items)
+                   .astype(np.int32), 0)
+    return {"item_seq": seq, "pos_items": pos,
+            "neg_items": np.maximum(neg, 1) * (seq != 0)}

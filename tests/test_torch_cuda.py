@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402  (the repository root's card script)
+from repro_torch.configs import recsys_family
 from repro_torch.configs.lm_family import get_config
 from repro_torch.core.annotation import reduce_minimal
 from repro_torch.core.vectorized import (bm25_topk, contained_in, pack,
@@ -28,12 +29,16 @@ from repro_torch.core.vectorized import (bm25_topk, contained_in, pack,
 from repro_torch.kernels.bm25_blockmax import (blockmax_scores,
                                                bm25_blockmax_topk,
                                                bm25_topk_ref, kernel, ref)
+from repro_torch.kernels.embedding_bag import (embedding_bag,
+                                               embedding_bag_padded_ref, take)
+from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
 from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
 from repro_torch.kernels.interval_join import (contained_in_mask_ref,
                                                containing_mask_ref,
                                                interval_join)
 from repro_torch.kernels.interval_join import kernel as join_kernel
+from repro_torch.models import recsys as TR
 from repro_torch.models import transformer as TT
 from repro_torch.serve import LMServer
 
@@ -280,3 +285,76 @@ def test_lmserver_on_card_matches_host(cuda_device):
     assert outs["card"] == outs["host"]
     for a, b in zip(logs["card"], logs["host"]):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------------------------ #
+# embedding_bag
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("case", chip_smoke.BAG_CASES,
+                         ids=[c[0] for c in chip_smoke.BAG_CASES])
+def test_embedding_bag_equals_plain(cuda_device, case):
+    """The cases of ``chip_smoke.py``'s ``bag_small``: bit for bit against
+    the plain version on the card and on the host; bags of one are take."""
+    table, idx, w = chip_smoke.bag_case(*case)
+    host = embedding_bag_padded_ref(table, idx, w)
+    t = (chip_smoke._off_16(table, cuda_device)
+         if case[0] == "table_off_16_bytes" else table.to(cuda_device))
+    i, ww = idx.to(cuda_device), w.to(cuda_device)
+    before = bag_kernel.launches
+    got = embedding_bag(t, i, ww)
+    assert bag_kernel.launches == before + int(idx.shape[0] > 0)
+    assert got.dtype == table.dtype and got.shape == host.shape
+    assert chip_smoke.same_bits(got, embedding_bag_padded_ref(t, i, ww))
+    assert chip_smoke.same_bits(got.cpu(), host)
+    flat = i.reshape(-1, 1)
+    one = embedding_bag(t, flat, torch.ones(flat.shape, device=cuda_device))
+    assert chip_smoke.same_bits(one, take(t, flat[:, 0]))
+
+
+def test_embedding_bag_rejects_bad_input(cuda_device):
+    table = torch.randn(50, 16, device=cuda_device)
+    idx = torch.randint(0, 50, (8, 4), dtype=torch.int32,
+                        device=cuda_device)
+    w = torch.rand(8, 4, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag(table.t().contiguous().t(), idx, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        embedding_bag(table, idx.t().contiguous().t(),
+                      w.t().contiguous().t())
+    with pytest.raises(TypeError, match="int32"):
+        embedding_bag(table, idx.long(), w)
+    with pytest.raises(TypeError, match="table"):
+        embedding_bag(table.double(), idx, w)
+    with pytest.raises(ValueError, match="is on"):
+        embedding_bag(table, idx.cpu(), w)
+    # a table off 16 bytes is not refused: it takes scalar loads
+    off = chip_smoke._off_16(table.cpu(), cuda_device)
+    assert torch.equal(embedding_bag(off, idx, w),
+                       embedding_bag(table, idx, w))
+
+
+@pytest.mark.parametrize("name,cands", [
+    ("dlrm-rm2", False), ("xdeepfm", False), ("two-tower-retrieval", False),
+    ("two-tower-retrieval", True), ("sasrec", False), ("sasrec", True)])
+def test_recsys_on_card_runs_the_kernel_only(cuda_device, monkeypatch, name,
+                                             cands):
+    """Each model at its smoke config on the card: the fixed launches a
+    call, never the plain version, and the host's numbers within phase
+    12's tolerance."""
+    def no_plain(*args):
+        raise AssertionError(f"{name} on the card took the plain version")
+    cfg = recsys_family.get_config(name, smoke=True)
+    host = TR.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    card = TR.make_model(cfg, cuda_device)
+    card.load_state_dict(host.state_dict())
+    batch = recsys_family.smoke_batch(name, "serve" if cands else "train")
+    want = recsys_family.serve(name, host, batch)
+    want64 = recsys_family.serve(name, host.double(), batch)
+    monkeypatch.setattr(bag_kernel, "embedding_bag_padded_ref", no_plain)
+    before = bag_kernel.launches
+    got = recsys_family.serve(name, card, batch)
+    torch.cuda.synchronize()
+    per_call = {"dlrm-rm2": 1, "xdeepfm": 2, "two-tower-retrieval": 2,
+                "sasrec": 1}[name] + int(cands)
+    assert bag_kernel.launches == before + per_call
+    assert chip_smoke.recsys_close(got, want, want64)["ok"]

@@ -35,7 +35,9 @@ def test_importing_every_module_loads_no_jax_or_reference():
     mods = _modules()
     assert {"repro_torch.serve", "repro_torch.models.transformer",
             "repro_torch.models.layers", "repro_torch.configs.lm_family",
-            "repro_torch.kernels.gqa_decode.kernel"} <= set(mods)
+            "repro_torch.kernels.gqa_decode.kernel",
+            "repro_torch.models.recsys", "repro_torch.configs.recsys_family",
+            "repro_torch.kernels.embedding_bag.kernel"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
