@@ -46,7 +46,9 @@ non-zero:
 8. decode_small: the gqa_decode kernel against its plain version (on the
    card and on the host), float32 and bfloat16, at the reference kernel
    test's sweep, length 0, length = S, length > S, S off the tile, G = 5
-   at D = 128, an odd D/8;
+   at D = 128, an odd D/8, and for the mma kernel lengths about its
+   tile, a split ending inside a tile, S below the tile, one split at
+   B·Hkv = 1024, D = 256 (the fma kernel in bfloat16), Hkv = 16 and 3;
 9. lm_serve, the third slice's main path: Qwen2.5-14B at full width in
    bfloat16 (48 layers, random weights from the seed on the card) behind
    ``LMServer(max_slots=8, max_len=1024)``, eight RAG-sized prompts of
@@ -61,7 +63,8 @@ non-zero:
    [4, 32768, 8, 128] (K and V drawn anew from the seed; all S and the
    cache's lengths) and at long_500k's [1, 524288, 8, 128], checked
    against its plain version with a tolerance scaled to the output and
-   timed against it, ``scaled_dot_product_attention`` and its bound;
+   timed against it, the fma kernel (the design before the mma path),
+   ``scaled_dot_product_attention`` and its bound;
 11. bag_small: the embedding_bag kernel against its plain version (on the
    card and on the host) at the reference kernel test's sweep, D = 1, 10
    and 50, a bag of 33, B = 0, L = 0, all weights 0, ids in [-V, 0), ids
@@ -1207,7 +1210,11 @@ def phase_deploy_join(dev, bw, flops, n_passages: int = MSMARCO_PASSAGES):
 # (b, hkv, g, d, s, lengths or None for lengths drawn in [1, S]): the
 # reference kernel test's sweep, then length 0, length = S, length > S, S
 # off the 128 tile, G = 5 at D = 128, an odd D/8, and Qwen2.5-14B's
-# per-layer shape at phase 9's cache.
+# per-layer shape at phase 9's cache; then, for the mma kernel's tile of
+# 128 positions (16 a warp), lengths 127-129 and 63-65, a length that
+# ends a split inside a tile (8 splits of 256), S below the tile,
+# B·Hkv = 1024 (one split), D = 256 (the fma kernel in bfloat16 too),
+# Hkv = 16 and Hkv = 3.
 DECODE_CASES = [
     (2, 2, 4, 64, 256, None), (1, 4, 1, 128, 512, None),
     (2, 1, 8, 128, 300, None), (4, 2, 2, 64, 1024, None),
@@ -1215,6 +1222,11 @@ DECODE_CASES = [
     (2, 1, 5, 128, 256, [256, 256]), (2, 2, 5, 16, 300, [300, 1]),
     (2, 2, 5, 64, 300, [301, 10_000]), (1, 1, 1, 8, 1, [1]),
     (3, 2, 5, 24, 130, [129, 2, 130]), (8, 8, 5, 128, 1024, None),
+    (3, 2, 5, 128, 256, [127, 128, 129]), (3, 2, 5, 64, 200, [63, 64, 65]),
+    (1, 1, 5, 128, 2048, [700]),
+    (2, 2, 5, 128, 40, [40, 17]), (128, 8, 5, 64, 256, None),
+    (1, 2, 4, 256, 200, [200]), (1, 16, 2, 64, 96, [77]),
+    (2, 3, 2, 32, 100, [100, 33]),
 ]
 # the reference kernel test's tolerances: bfloat16 outputs round to 8 bits
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -1231,6 +1243,7 @@ def decode_close(got, want, dtype: str) -> bool:
 def phase_decode_small(dev) -> float:
     import torch
     from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
+    from repro_torch.kernels.gqa_decode.kernel import path
     worst = {}
     for dtype in DECODE_TOL:
         tdt = getattr(torch, dtype)
@@ -1258,6 +1271,8 @@ def phase_decode_small(dev) -> float:
             worst[dtype] = max(worst.get(dtype, 0.0), err)
     _sync(dev)
     emit("decode_small", cases=[c[:5] for c in DECODE_CASES],
+         paths={dtype: [path(getattr(torch, dtype), c[3])
+                        for c in DECODE_CASES] for dtype in DECODE_TOL},
          max_abs_err=worst, tolerance={k: f"rtol = atol = {v}"
                                        for k, v in DECODE_TOL.items()},
          compared="kernel vs the plain version on the card and on the host")
@@ -1490,10 +1505,12 @@ def time_decode_kernel(name, q, k, v, length, bw, flops, flush) -> dict:
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
     from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
+    from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
     b, hkv, g, d = q.shape
     err = check_deploy(name, q, k, v, length)
-    kernel_ms = time_cuda(lambda: gqa_decode(q, k, v, length),
-                          flush=flush.zero_)
+    fma = gqa_kernel._launch(q, k, v, length, gqa_kernel.FMA)
+    check(deploy_close(fma, gqa_decode_ref(q, k, v, length)),
+          f"{name}: the fma kernel disagrees with the plain version")
     plain_ms = time_cuda(lambda: gqa_decode_ref(q, k, v, length), n=5,
                          flush=flush.zero_)
     qs, kt, vt = q.reshape(b, hkv * g, 1, d), k.transpose(1, 2), \
@@ -1504,7 +1521,23 @@ def time_decode_kernel(name, q, k, v, length, bw, flops, flush) -> dict:
     lib = library()
     lib_err = float((lib.reshape(q.shape).float()
                      - gqa_decode(q, k, v, length).float()).abs().max())
-    library_ms = time_cuda(library, flush=flush.zero_)
+    # the kernel, the fma kernel and the library call in turns (A B C C B
+    # A), TIMED_LAUNCHES // 2 launches each time; each time is the mean of
+    # its two medians
+    calls = {"kernel": lambda: gqa_decode(q, k, v, length),
+             "fma": lambda: gqa_kernel._launch(q, k, v, length,
+                                               gqa_kernel.FMA),
+             "library": library}
+    turns = {key: [] for key in calls}
+    for key in [*calls, *reversed(calls)]:
+        turns[key].append(time_cuda(calls[key], n=TIMED_LAUNCHES // 2,
+                                    flush=flush.zero_))
+    kernel_ms, fma_ms, library_ms = (float(np.mean(turns[key]))
+                                     for key in calls)
+    # the kernel's two passes alone, device time (the profiler sees them)
+    passes = {name: kernel_device_ms(calls["kernel"], f"gqa_{name}_kernel")
+              for name in (f"{gqa_kernel.path(q.dtype, d)}_partial",
+                           "combine")}
     # the dispatcher's own choice: on an H100 the profiler records no
     # device activity for this call
     library_backend = SDPBackend(torch._fused_sdp_choice(
@@ -1513,8 +1546,13 @@ def time_decode_kernel(name, q, k, v, length, bw, flops, flush) -> dict:
     bound_ms, bound_by, nbytes = decode_bound(rows, hkv, g, d, b,
                                               q.element_size(), bw, flops)
     return dict(shape=[b, k.shape[1], hkv, d], g=g, max_abs_err=err,
-                kernel_ms=kernel_ms, plain_ms=plain_ms,
-                library_ms=library_ms, library_max_abs_diff=lib_err,
+                path=gqa_kernel.path(q.dtype, d), kernel_ms=kernel_ms,
+                plain_ms=plain_ms, fma_ms=fma_ms,
+                library_ms=library_ms, turns_ms=turns,
+                device_ms=passes,
+                library_max_abs_diff=lib_err,
+                kernel_over_library=kernel_ms / library_ms,
+                fma_over_library=fma_ms / library_ms,
                 library_call="F.scaled_dot_product_attention(enable_gqa="
                              "True), equal lengths",
                 library_backend=library_backend,
@@ -2102,6 +2140,11 @@ def main() -> int:
                  "allow_bf16_reduced_precision_reduction": False},
          build_s=time.perf_counter() - t0,
          ptxas={k: ptxas_summary(v["log"]) for k, v in built.items()})
+    if "gqa_decode" in built:
+        lines = ptxas_summary(built["gqa_decode"]["log"])
+        check(len(lines) >= 26 and all(" 0 bytes spill stores" in line
+                                       for line in lines.values()),
+              f"a gqa_decode instantiation spills: {lines}")
 
     small_err = phase_kernel_small(dev)
     warren, launches, real_err = phase_main_path(dev, bw, flops)
@@ -2150,6 +2193,8 @@ def main() -> int:
         "name": "gqa_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/gqa_decode.cu",
         "replaces": "src/repro/kernels/gqa_decode/kernel.py:62",
+        "design": "mma: cp.async ring of K/V tiles, mma.sync for q.K and "
+                  "P.V (P as bf16 hi + lo)",
         "launches": lm["calls"][0]["launches"],
         "max_abs_err": max(decode_err, *(deploy[c]["max_abs_err"]
                                          for c in ("32k", "500k"))),
@@ -2157,9 +2202,10 @@ def main() -> int:
         "plain_ms": k32["plain_ms"], "library_ms": k32["library_ms"],
         "bound_ms": k32["bound_ms"], "bound_by": k32["bound_by"],
         "shape": k32["shape"], "g": k32["g"], "dtype": "bfloat16",
+        "fma_ms": k32["fma_ms"],
         "500k": {k: deploy["500k"][k] for k in (
-            "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")},
+            "shape", "kernel_ms", "plain_ms", "fma_ms", "library_ms",
+            "bound_ms", "bound_by")},
     }, {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/csrc/embedding_bag.cu",

@@ -4,6 +4,12 @@ For CUDA tensors it launches the hand-written split-KV kernel, or raises;
 for CPU tensors it computes the plain version (:mod:`.ref`).  ``launches``
 counts wrapper calls that launched the kernel (its partial and combine
 passes count as one), and nothing else.
+
+The kernel has two partial passes, chosen by :func:`path` from the dtype
+and D alone: ``MMA`` (bfloat16, D ≤ 128: K/V tiles through a shared-memory
+ring fed by ``cp.async`` copies, both products on tensor cores) and ``FMA``
+(float32, and bfloat16 with D > 128: float32 FMAs).  A build or launch
+that fails raises; no path falls back to another.
 """
 
 import ctypes
@@ -16,11 +22,17 @@ from repro_torch.kernels import build
 from .ref import gqa_decode_ref
 
 NAME = "gqa_decode"
+MMA, FMA = "mma", "fma"
+MMA_MAX_D = 128
+TILE = 128             # positions per tile of the mma kernel, as built
+STAGES = 2             # its ring's stages, as built (GQA_TILE, GQA_STAGES)
+BLOCKS_PER_SM = 1      # mma blocks the split count aims at, per SM
+                       # (swept by launch.decode_sweep)
+FMA_BLOCKS_PER_SM = 8  # the same for the fma kernel
 MIN_SPLIT = 256        # fewest positions a split walks
-BLOCKS_PER_SM = 8      # blocks the split count aims at, per SM (swept by
-                       # launch.decode_sweep)
 MAX_G = 8
 MAX_D = 256
+SMEM_LIMIT = 232_448   # shared memory a block may use on Hopper (227 KB)
 DTYPES = (torch.float32, torch.bfloat16)
 launches = 0
 
@@ -28,22 +40,55 @@ _sm_count = {}
 
 
 def _launcher():
-    fn = build.load(NAME).gqa_decode_launch
+    """(launch function, the library's mma tile): the tile as built, so a
+    library built with another ``GQA_TILE`` gets splits to match."""
+    lib = build.load(NAME)
+    fn = lib.gqa_decode_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+    return fn, lib.gqa_decode_tile()
 
 
-def splits(bh: int, s: int, sms: int):
+def path(dtype: torch.dtype, d: int) -> str:
+    """The partial pass for q's dtype and head width D: tensor cores for
+    bfloat16 up to D = 128, float32 FMAs otherwise (TF32 would miss the
+    float32 tolerance; at D = 256 the mma accumulator alone would take 128
+    registers)."""
+    return MMA if dtype == torch.bfloat16 and d <= MMA_MAX_D else FMA
+
+
+def mma_smem_bytes(d: int, tile: int = None, stages: int = None) -> int:
+    """Shared memory of one mma block: the ring's dynamic part (STAGES
+    stages of a K and a V tile, TILE rows of D rounded up to 16 plus 8
+    bfloat16 each; ``mma_smem_bytes`` in the source) and the static part
+    (a barrier a stage, the warps' m and l of 8 rows)."""
+    tile, stages = tile or TILE, stages or STAGES
+    dp = -(-d // 16) * 16
+    return (stages * 2 * tile * (dp + 8) * 2 + 8 * stages
+            + 2 * (tile // 16) * 8 * 4)
+
+
+def splits(bh: int, s: int, sms: int, kind: str = MMA, tile: int = None):
     """(n_split, chunk): the KV axis cut into ``n_split`` runs of ``chunk``
-    positions, so that ``bh·n_split`` blocks give the card about
-    ``BLOCKS_PER_SM`` blocks per SM, each split at least ``MIN_SPLIT``
-    positions long.  Depends on shapes only, never on ``length``."""
-    n = -(-BLOCKS_PER_SM * sms // bh)
+    positions.  Depends on shapes only, never on ``length``; every split
+    holds a position and, when there are several, at least ``MIN_SPLIT``.
+
+    ``MMA``: about ``BLOCKS_PER_SM`` blocks per SM, rounded down so that
+    ``bh·n_split`` blocks fit the card in one wave, and ``chunk`` a
+    multiple of the tile.  ``FMA``: at least ``FMA_BLOCKS_PER_SM`` blocks
+    per SM (rounded up)."""
+    if kind == MMA:
+        unit = tile or TILE
+        n = BLOCKS_PER_SM * sms // bh
+    else:
+        unit = 1
+        n = -(-FMA_BLOCKS_PER_SM * sms // bh)
     n = max(1, min(n, s // MIN_SPLIT))
-    chunk = -(-s // n)
+    per = -(-s // n)
+    chunk = -(-per // unit) * unit
     return -(-s // chunk), chunk
 
 
@@ -88,7 +133,6 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     means all S positions, and ``length == 0`` gives zeros (the Pallas
     kernel's semantics, see :mod:`.ref`).
     """
-    global launches
     _check(q, k, v, length)
     if q.device.type == "cpu":
         return gqa_decode_ref(q, k, v, length)
@@ -97,6 +141,13 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
+    return _launch(q, k, v, length, path(q.dtype, q.shape[-1]))
+
+
+def _launch(q, k, v, length, kind: str) -> torch.Tensor:
+    """Launch the partial pass ``kind`` and the combine on checked CUDA
+    tensors, and count the launch."""
+    global launches
     b, hkv, g, d = q.shape
     s = k.shape[1]
     out = torch.empty_like(q)
@@ -108,17 +159,18 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if sms is None:
         sms = _sm_count[dev] = \
             torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, chunk = splits(b * hkv, s, sms)
+    launch, tile = _launcher()
+    n_split, chunk = splits(b * hkv, s, sms, kind, tile)
     part = torch.empty(b * hkv * n_split * g * (d + 2), dtype=torch.float32,
                        device=q.device)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))   # as ref.py
-    launch = _launcher()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                      length.data_ptr(), out.data_ptr(), part.data_ptr(),
                      b, s, hkv, g, d, n_split, chunk, scale,
-                     int(q.dtype == torch.bfloat16), stream)
+                     int(q.dtype == torch.bfloat16), int(kind == MMA),
+                     stream)
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
     launches += 1

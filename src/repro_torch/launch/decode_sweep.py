@@ -1,21 +1,26 @@
-"""Sweep the two launch settings of the ``gqa_decode`` kernel on one card.
+"""Sweep the launch settings of the ``gqa_decode`` mma kernel on one card.
 
     python -m repro_torch.launch.decode_sweep [--reps 2]
 
-The kernel (``csrc/gqa_decode.cu``) has two settings: U, the rows each row
-group keeps in flight per step (the compile-time ``GQA_ROWS_IN_FLIGHT``),
-and the blocks per SM that the wrapper's split count aims at
-(``kernel.BLOCKS_PER_SM``).  This builds the kernel
-once for each U in 1, 2, 4, 8 (one ``nvcc`` each, started together, into
-``_build/``) and times every (U, blocks per SM) pair at the shapes that
-``chip_smoke.py`` times: one Qwen2.5-14B layer at 4 × 32k, long_500k's
-1 × 524,288 and the ``lm_serve`` cache of 8 × 1,024; bfloat16, G = 5,
-D = 128, K and V drawn from a seed, every position valid.  A time is the
-median of 30 launches by CUDA events, the L2 cache flushed before each.
-The whole grid runs ``--reps`` times in the same order, so the spread
-between passes shows.  Every setting's output is checked against the
-plain version.  Prints one JSON line per setting and pass, then a summary
-line with the default setting's times and the fastest per shape.
+The bfloat16 kernel for D ≤ 128 (``csrc/gqa_decode.cu``, the mma path) has
+three settings: the positions per tile (``GQA_TILE``, 16 per warp), the
+stages of its shared-memory ring (``GQA_STAGES``) and the blocks per SM
+that the wrapper's split count aims at (``kernel.BLOCKS_PER_SM``).  This
+builds the kernel once for each (tile, stages) in ``VARIANTS`` (one
+``nvcc`` each, started together, into ``_build/``) and times every
+variant at every blocks-per-SM setting at
+the shapes that ``chip_smoke.py`` times: one Qwen2.5-14B layer at 4 × 32k,
+long_500k's 1 × 524,288 and the ``lm_serve`` cache of 8 × 1,024; bfloat16,
+G = 5, D = 128, K and V drawn from a seed, every position valid.  In the
+same pass it times the yardsticks at each shape: the fma kernel (the
+design before the mma path, at its own split rule) and
+``F.scaled_dot_product_attention(enable_gqa=True)``.  A time is the median
+of 30 launches by CUDA events, the L2 cache flushed before each.  The
+whole grid runs ``--reps`` times in the same order, so the spread between
+passes shows.  Every setting's output is checked against the plain
+version.  Prints one JSON line per setting and pass, then a summary line
+with the default setting's times, the yardsticks' and the fastest setting
+per shape.
 
 It needs a CUDA card.
 """
@@ -36,34 +41,38 @@ from repro_torch.kernels import build
 from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
 from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
 
-ROWS_IN_FLIGHT = (1, 2, 4, 8)
-BLOCKS_PER_SM = (2, 3, 4, 8, 16, 32)
+# (tile, stages)
+VARIANTS = ((64, 2), (64, 3), (64, 4), (128, 2))
+BLOCKS_PER_SM = (1, 2, 3, 4)
 SHAPES = ((4, 32_768), (1, 524_288), (8, 1_024))     # (B, S)
 HKV, G, D = 8, 5, 128
-DEFAULT = (int(re.search(r"#define GQA_ROWS_IN_FLIGHT (\d+)", (
-    build.CSRC / "gqa_decode.cu").read_text()).group(1)),
-    gqa_kernel.BLOCKS_PER_SM)
+_SRC = (build.CSRC / "gqa_decode.cu").read_text()
+DEFAULT = tuple(int(re.search(rf"#define {name} (\d+)", _SRC).group(1))
+                for name in ("GQA_TILE", "GQA_STAGES")) \
+    + (gqa_kernel.BLOCKS_PER_SM,)
 TIMED = 30
+SETTING = ("tile", "stages", "blocks_per_sm")
 
 
-def build_variants(us=ROWS_IN_FLIGHT) -> dict:
-    """{U: (library, ptxas line of the bfloat16 G = 5 partial kernel)}."""
+def build_variants(variants=VARIANTS) -> dict:
+    """{(tile, stages): (library, ptxas line of the D = 128 mma
+    kernel)}."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for u in us:
-        path = build.BUILD_DIR / f"libgqa_decode_u{u}.so"
-        procs[u] = path, subprocess.Popen(
+    for tile, stages in variants:
+        path = build.BUILD_DIR / f"libgqa_decode_t{tile}_s{stages}.so"
+        procs[tile, stages] = path, subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v",
-             f"-DGQA_ROWS_IN_FLIGHT={u}", "-o", str(path),
+             f"-DGQA_TILE={tile}", f"-DGQA_STAGES={stages}", "-o", str(path),
              str(build.CSRC / "gqa_decode.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     out = {}
-    for u, (path, proc) in procs.items():
+    for key, (path, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for U = {u}:\n{log}")
-        out[u] = ctypes.CDLL(str(path)), ptxas_lines(
-            log, "gqa_partial_kernelI13__nv_bfloat16Li5E")
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        out[key] = ctypes.CDLL(str(path)), ptxas_lines(
+            log, "gqa_mma_partial_kernelILi8E")
     return out
 
 
@@ -103,6 +112,20 @@ def close(got, want) -> bool:
     return bool(((got - want).abs() <= 1e-2 * want.abs() + 1e-3 * rms).all())
 
 
+def yardsticks(args, flush) -> dict:
+    """The fma kernel's and the library's ms at one shape."""
+    import torch.nn.functional as F
+    q, k, v, length = args
+    b = q.shape[0]
+    qs = q.reshape(b, HKV * G, 1, D)
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    return dict(
+        fma_ms=time_ms(lambda: gqa_kernel._launch(*args, gqa_kernel.FMA),
+                       flush),
+        sdpa_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qs, kt, vt, enable_gqa=True), flush))
+
+
 def sweep(reps: int, seed: int = 0) -> list:
     dev = resolve_device(None)
     variants = build_variants()
@@ -119,46 +142,55 @@ def sweep(reps: int, seed: int = 0) -> list:
         inputs[b, s] = (q, k, v, length), gqa_decode_ref(q, k, v, length)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    saved = gqa_kernel.BLOCKS_PER_SM, build._libs.get(gqa_kernel.NAME)
+    default_lib = build.load(gqa_kernel.NAME)
+    saved_bps = gqa_kernel.BLOCKS_PER_SM
     try:
         for rep in range(reps):
             for (b, s), (args, want) in inputs.items():
-                for u, (lib, regs) in variants.items():
+                build._libs[gqa_kernel.NAME] = default_lib
+                row = dict(shape=[b, s], rep=rep, **yardsticks(args, flush))
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+                for (tile, stages), (lib, regs) in variants.items():
                     build._libs[gqa_kernel.NAME] = lib
                     for bps in BLOCKS_PER_SM:
                         gqa_kernel.BLOCKS_PER_SM = bps
                         if not close(gqa_decode(*args), want):
                             raise AssertionError(
-                                f"U = {u}, {bps} blocks an SM at {b} x {s}: "
-                                "the kernel disagrees with its plain version")
+                                f"tile {tile}, {stages} stages, {bps} "
+                                f"blocks an SM at {b} x {s}: the "
+                                "kernel disagrees with its plain version")
                         row = dict(
-                            shape=[b, s], u=u, blocks_per_sm=bps, rep=rep,
-                            n_split=gqa_kernel.splits(b * HKV, s, sms)[0],
+                            shape=[b, s], tile=tile, stages=stages,
+                            blocks_per_sm=bps, rep=rep,
+                            n_split=gqa_kernel.splits(b * HKV, s, sms,
+                                                      tile=tile)[0],
+                            smem=gqa_kernel.mma_smem_bytes(D, tile, stages),
                             ms=time_ms(lambda: gqa_decode(*args), flush),
-                            ptxas_g5=regs)
+                            ptxas_d128=regs)
                         rows.append(row)
                         print(json.dumps(row), flush=True)
     finally:
-        gqa_kernel.BLOCKS_PER_SM = saved[0]
-        if saved[1] is None:
-            build._libs.pop(gqa_kernel.NAME, None)
-        else:
-            build._libs[gqa_kernel.NAME] = saved[1]
+        gqa_kernel.BLOCKS_PER_SM = saved_bps
+        build._libs[gqa_kernel.NAME] = default_lib
     return rows
 
 
 def summary(rows: list) -> dict:
     out = {}
     for b, s in SHAPES:
-        mine = [r for r in rows if r["shape"] == [b, s]]
+        here = [r for r in rows if r["shape"] == [b, s]]
+        mine = [r for r in here if "ms" in r]
         best = min(mine, key=lambda r: r["ms"])
+        setting = tuple(best[k] for k in SETTING)
         out[f"{b}x{s}"] = dict(
             default_ms=[r["ms"] for r in mine
-                        if (r["u"], r["blocks_per_sm"]) == DEFAULT],
-            best={k: best[k] for k in ("u", "blocks_per_sm", "rep", "ms")},
+                        if tuple(r[k] for k in SETTING) == DEFAULT],
+            fma_ms=[r["fma_ms"] for r in here if "fma_ms" in r],
+            sdpa_ms=[r["sdpa_ms"] for r in here if "sdpa_ms" in r],
+            best={k: best[k] for k in (*SETTING, "rep", "ms")},
             best_setting_ms=[r["ms"] for r in mine
-                             if (r["u"], r["blocks_per_sm"])
-                             == (best["u"], best["blocks_per_sm"])])
+                             if tuple(r[k] for k in SETTING) == setting])
     return out
 
 
@@ -168,8 +200,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     rows = sweep(args.reps)
     print(json.dumps({"card": torch.cuda.get_device_name(0),
-                      "default": {"u": DEFAULT[0],
-                                  "blocks_per_sm": DEFAULT[1]},
+                      "default": dict(zip(SETTING, DEFAULT)),
                       "summary": summary(rows)}), flush=True)
 
 

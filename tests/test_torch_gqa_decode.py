@@ -14,6 +14,8 @@ nearest-even in each framework, which gives the same bits.
 """
 
 import os
+import sys
+from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -28,6 +30,9 @@ from repro.kernels.gqa_decode.ref import gqa_decode_ref as jax_ref
 from repro.models.layers import decode_gqa_attention
 from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
 from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402  (the repository root's card script)
 
 BLOCK = 128
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -226,15 +231,27 @@ def test_decode_sweep_reads_ptxas_and_sums_up():
     assert ds.ptxas_lines(log, "bfloat16Li5E") == (
         "8 bytes stack frame, 4 bytes spill stores, 32 bytes spill loads; "
         "Used 168 registers, used 1 barriers")
-    rows = [dict(shape=list(shape), u=u, blocks_per_sm=bps, rep=rep,
-                 ms=1.0 + u / 10 + rep / 100 - (u == 8) * bps / 1000)
+    def ms(tile, stages, bps, rep):
+        return 1.0 + stages / 10 + rep / 100 - (tile == 128) * bps / 1000
+
+    rows = [dict(shape=list(shape), tile=t, stages=st, blocks_per_sm=bps,
+                 rep=rep, ms=ms(t, st, bps, rep))
             for shape in ds.SHAPES for rep in range(2)
-            for u in ds.ROWS_IN_FLIGHT for bps in ds.BLOCKS_PER_SM]
-    assert ds.DEFAULT == (2, gqa_kernel.BLOCKS_PER_SM)   # as built
+            for t, st in ds.VARIANTS for bps in ds.BLOCKS_PER_SM]
+    rows += [dict(shape=list(shape), rep=rep, fma_ms=2.0 + rep,
+                  sdpa_ms=0.5 + rep) for shape in ds.SHAPES
+             for rep in range(2)]
+    assert ds.DEFAULT == (gqa_kernel.TILE, gqa_kernel.STAGES,
+                          gqa_kernel.BLOCKS_PER_SM)   # as built
     got = ds.summary(rows)["4x32768"]
-    assert got["default_ms"] == pytest.approx([1.2, 1.21])
-    assert got["best"] == dict(u=1, blocks_per_sm=2, rep=0, ms=1.1)
-    assert got["best_setting_ms"] == [1.1, 1.11]
+    assert got["default_ms"] == pytest.approx(
+        [ms(*ds.DEFAULT, rep) for rep in range(2)])
+    assert got["fma_ms"] == [2.0, 3.0] and got["sdpa_ms"] == [0.5, 1.5]
+    top = max(ds.BLOCKS_PER_SM)
+    assert got["best"] == dict(tile=128, stages=2, blocks_per_sm=top, rep=0,
+                               ms=pytest.approx(ms(128, 2, top, 0)))
+    assert got["best_setting_ms"] == pytest.approx(
+        [ms(128, 2, top, rep) for rep in range(2)])
 
 
 def test_decode_sweep_needs_a_card():
@@ -243,3 +260,167 @@ def test_decode_sweep_needs_a_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError):
         ds.sweep(reps=1)
+
+
+# ------------------------------------------------------------------ #
+# The mma path's arithmetic (bfloat16, D <= 128), emulated in torch
+# ------------------------------------------------------------------ #
+H100_SMS = 132
+
+
+def emulate_mma(q, k, v, length, sms=H100_SMS, tile=None,
+                single_bf16=False):
+    """The mma kernel's arithmetic in its order, in torch on the CPU.
+
+    Splits as the wrapper cuts them; each split walks tiles of ``tile``
+    positions, and each warp of a block owns 16 positions of a tile with
+    its own online softmax in float32 (scores of bfloat16 q and K summed
+    in float32, scaled by 1/√D; positions at or past the split's end or
+    min(length, S) at -inf).  P·V takes P_hi = bf16(p) and P_lo =
+    bf16(p - P_hi) into two float32 sums (``single_bf16``: P_hi alone),
+    added when the warps merge at the block's max; the combine merges the
+    splits with l > 0 and rounds to bfloat16."""
+    tile = tile or gqa_kernel.TILE
+    b, hkv, g, d = q.shape
+    s = k.shape[1]
+    n_split, chunk = gqa_kernel.splits(b * hkv, s, sms, gqa_kernel.MMA, tile)
+    assert chunk % tile == 0
+    warps = tile // 16
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
+    qf = q.float()                                        # [B, H, G, D]
+    kf, vf = (x.float().permute(0, 2, 1, 3) for x in (k, v))  # [B, H, S, D]
+    ln = length.long().clamp(0, s)
+    lo = torch.arange(n_split) * chunk                    # [N]
+    hi = torch.minimum(lo[None] + chunk, ln[:, None])     # [B, N]
+    shape = (b, hkv, n_split, warps, g)
+    m = torch.full(shape, -1e30)
+    l = torch.zeros(shape)
+    o_hi, o_lo = torch.zeros(shape + (d,)), torch.zeros(shape + (d,))
+    lane = torch.arange(16)
+    bi = torch.arange(b)[:, None, None, None, None]
+    hi_ = torch.arange(hkv)[None, :, None, None, None]
+    for t in range(chunk // tile):
+        first = lo[:, None] + t * tile + 16 * torch.arange(warps)  # [N, W]
+        pos = first[..., None] + lane                              # [N, W, 16]
+        end = hi[:, None, :, None, None]                 # [B, 1, N, 1, 1]
+        valid = pos[None, None] < end                    # [B, 1, N, W, 16]
+        active = (first[None, None] < hi[:, None, :, None])[..., None]
+        at = pos.clamp(max=s - 1)[None, None]
+        kk, vv = kf[bi, hi_, at], vf[bi, hi_, at]         # [B, H, N, W, 16, D]
+        sc = torch.einsum("bhgd,bhnwpd->bhnwgp", qf, kk) * scale
+        sc = torch.where(valid[:, :, :, :, None], sc, -torch.inf)
+        mx = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - mx)
+        p = torch.exp(sc - mx[..., None])
+        vv = torch.where(valid[..., None], vv, 0.0)
+        p_hi = p.bfloat16().float()
+        p_lo = torch.zeros_like(p) if single_bf16 else \
+            (p - p_hi).bfloat16().float()
+        l = torch.where(active, l * alpha + p.sum(-1), l)
+        o_hi = torch.where(active[..., None], o_hi * alpha[..., None]
+                           + torch.einsum("bhnwgp,bhnwpd->bhnwgd", p_hi, vv),
+                           o_hi)
+        o_lo = torch.where(active[..., None], o_lo * alpha[..., None]
+                           + torch.einsum("bhnwgp,bhnwpd->bhnwgd", p_lo, vv),
+                           o_lo)
+        m = torch.where(active, mx, m)
+    # the warps merge at the block's max
+    mstar = m.amax(3, keepdim=True)
+    wgt = torch.exp(m - mstar)
+    acc = ((o_hi + o_lo) * wgt[..., None]).sum(3)         # [B, H, N, G, D]
+    lsum = (l * wgt).sum(3)                               # [B, H, N, G]
+    mpart = mstar[:, :, :, 0]
+    # the combine: splits with l > 0
+    used = lsum > 0
+    mall = torch.where(used, mpart, -1e30).amax(2, keepdim=True)
+    w = torch.where(used, torch.exp(mpart - mall), 0.0)
+    total = (lsum * w).sum(2)
+    out = (acc * w[..., None]).sum(2) / total.clamp(min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("case", [("sweep",) + c + (None,) for c in SWEEP]
+                         + EDGES, ids=lambda c: c[0] + str(list(c[1:6])))
+def test_mma_emulation_matches_pallas(case):
+    """The mma path's arithmetic against the Pallas kernel (interpret
+    mode) at the bfloat16 tolerance of the kernel tests."""
+    name, b, hkv, g, d, s, lengths = case
+    seed = b * 100 + s if lengths is None else len(name) * 7 + s
+    arrays = _inputs(seed, b, hkv, g, d, s)
+    if lengths is None:
+        lengths = np.random.default_rng(seed).integers(1, s + 1, size=b)
+    jx, tx = _both(arrays, "bfloat16")
+    tol = DTYPES["bfloat16"][2]
+    got = emulate_mma(*tx, torch.tensor(np.asarray(lengths, np.int32)))
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(_f32(got), _f32(_pallas(jx, lengths)),
+                               rtol=tol, atol=tol)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert not got[i].any(), f"{name}: length 0 must give zeros"
+
+
+def _deploy_inputs(seed=0, s=32_768, g=5, d=128):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).bfloat16()
+        for shape in ((1, 1, g, d), (1, s, 1, d), (1, s, 1, d)))
+    return q, k, v, torch.tensor([s], dtype=torch.int32)
+
+
+@pytest.mark.parametrize("single_bf16", [False, True],
+                         ids=["p_hi_plus_lo", "p_single_bf16"])
+def test_mma_emulation_at_32k_deploy_tolerance(single_bf16):
+    """At [1, 32768, 1, 128], G = 5, the split P holds chip_smoke.py's
+    deployment tolerance against the plain version; P rounded once to
+    bfloat16 must fail it (that is why the kernel splits P)."""
+    args = _deploy_inputs()
+    got = emulate_mma(*args, single_bf16=single_bf16)
+    want = gqa_decode_ref(*args)
+    assert chip_smoke.deploy_close(got, want) is not single_bf16
+
+
+def test_path_rule_is_dtype_and_d():
+    rule = gqa_kernel.path
+    assert [rule(torch.bfloat16, d) for d in (8, 16, 24, 64, 128)] \
+        == [gqa_kernel.MMA] * 5
+    assert rule(torch.bfloat16, 136) == rule(torch.bfloat16, 256) \
+        == gqa_kernel.FMA
+    assert [rule(torch.float32, d) for d in (8, 128, 256)] \
+        == [gqa_kernel.FMA] * 3
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+def test_mma_splits_cover_whole_tiles_in_one_wave(tile):
+    for bh, s, sms in [(32, 32768, 132), (8, 524288, 132), (64, 1024, 132),
+                       (1, 1, 132), (4, 300, 132), (1024, 256, 132),
+                       (1, 2048, 132), (2, 40, 132), (48, 100_000, 114)]:
+        n, chunk = gqa_kernel.splits(bh, s, sms, gqa_kernel.MMA, tile)
+        assert chunk % tile == 0
+        assert (n - 1) * chunk < s <= n * chunk      # covered, none empty
+        assert n == 1 or (bh * n <= gqa_kernel.BLOCKS_PER_SM * sms
+                          and chunk >= gqa_kernel.MIN_SPLIT)
+        assert gqa_kernel.splits(bh, s, sms, gqa_kernel.MMA, tile) \
+            == (n, chunk)                            # shapes alone
+    n = 4 * gqa_kernel.BLOCKS_PER_SM      # 32 pairs on 132 SMs
+    assert gqa_kernel.splits(32, 32768, 132, gqa_kernel.MMA, 64) \
+        == (n, 32768 // n)
+
+
+def test_mma_shared_memory_fits_every_setting():
+    """Every D the mma path takes, at the built setting and every setting
+    that launch.decode_sweep builds, fits a block's 227 KB."""
+    from repro_torch.launch import decode_sweep as ds
+    settings = {(gqa_kernel.TILE, gqa_kernel.STAGES)} | set(ds.VARIANTS)
+    for tile, stages in settings:
+        for d in range(8, gqa_kernel.MMA_MAX_D + 1, 8):
+            assert gqa_kernel.mma_smem_bytes(d, tile, stages) \
+                <= gqa_kernel.SMEM_LIMIT, (tile, stages, d)
+    assert gqa_kernel.mma_smem_bytes(128, 64, 3) == 3 * 2 * 64 * 136 * 2 \
+        + 8 * 3 + 2 * 4 * 8 * 4
+
+
+def test_wrapper_settings_are_the_sources():
+    """kernel.TILE and kernel.STAGES name what csrc/gqa_decode.cu builds."""
+    from repro_torch.launch import decode_sweep as ds
+    assert ds.DEFAULT[:2] == (gqa_kernel.TILE, gqa_kernel.STAGES)
