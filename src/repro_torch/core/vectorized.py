@@ -223,14 +223,15 @@ def stable_topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     integer of the same order (negative floats have their magnitude bits
     flipped) in the high word, and ``2^32 - 1 - index`` in the low word.
     One ``torch.topk`` over the keys then has no ties to order, and no
-    value leaves the device.  ``-0.0`` ranks with ``+0.0``.
+    value leaves the device.  The key is the raw bits, so ``-0.0`` ranks
+    just below ``+0.0``, as in ``lax.top_k``.
     """
     n = x.shape[-1]
     if not 0 <= k <= n:
         raise ValueError(f"k={k} outside [0, {n}]")
     if x.dtype != torch.float32:
         raise TypeError(f"stable_topk takes float32, got {x.dtype}")
-    bits = (x + 0.0).view(torch.int32)
+    bits = x.view(torch.int32)
     key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
     key.mul_(1 << 32).add_(
         (1 << 32) - 1 - torch.arange(n, dtype=torch.int64, device=x.device))

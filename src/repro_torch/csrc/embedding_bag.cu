@@ -30,27 +30,51 @@
 // L2.
 //
 // Design.  The TPU grid runs one program per bag and fetches one row per
-// loop step, with the bag's ids scalar-prefetched into SMEM.  Here one
-// warp owns a bag and its lanes lie across D: VEC consecutive elements a
-// lane (one 16-byte load when D is a multiple of 16 bytes' worth and the
-// table is 16-byte aligned, else scalar loads), CH vectors a lane, passes
-// of CH * 32 * VEC elements for wider rows.  A block holds kWarps bags, so
-// D = 64 still launches B / 8 blocks.  The warp reads 32 of its bag's ids
-// and weights at once, one a lane, and broadcasts them with shuffles (the
-// scalar prefetch); it issues the loads of U rows before it adds any of
-// them, so each warp keeps U rows in flight, and adds them in bag order.
-// No shared memory, no atomics, no order between blocks.  wgmma and TMA do
-// not apply (no products; rows are gathered, not tiled).
+// loop step, with the bag's ids scalar-prefetched into SMEM.  Here rows
+// are read as VEC-element vectors (one 16-byte load each when D is a
+// multiple of 16 bytes' worth and the table is 16-byte aligned, else
+// scalar loads), and the launch plan (kernel.py `plan`) picks one of two
+// kernels by the row's width:
+//  - the grouped kernel, for a row of at most 16 vectors (DLRM's 64
+//    float32): a warp takes a run of consecutive bags, and its lanes split
+//    into groups of LANES lanes (a power of two, a vector a lane), one bag
+//    a group: 2 groups at D = 64 float32, 4 at bfloat16 D = 64, 8 at
+//    D = 16.  The warp walks its run in steps: in a step a group takes
+//    BPG bags (the most, a power of two, whose L items fit its kRows
+//    rows in flight; else one bag, kRows items a step) and issues the
+//    loads of all their rows before it adds any, so at L = 1 kRows
+//    bags' rows are in flight in each group, where a warp a bag would
+//    hold one row and leave half its lanes idle.  The next step's ids
+//    and weights are loaded while this step's rows are in flight; the
+//    lanes of a group read one id from one address (a broadcast), the
+//    groups' bags are consecutive, so a step's output rows are one
+//    contiguous store;
+//  - the warp kernel, for a wider row (the history bag's 256 float32): a
+//    warp a bag, lanes across D, CH vectors a lane, passes of CH * 32 *
+//    VEC elements for wider rows; the warp reads 32 of its bag's ids and
+//    weights at once and broadcasts them with shuffles, and issues the
+//    loads of kWarpRows rows before it adds any.  Two rows (2 KB at
+//    D = 256) a warp, at 32 registers and so 64 warps a SM, measured on an
+//    H100 (PERF.md) as fast as 4 where the rows come from DRAM and 9 %
+//    faster at Zipf ids, whose rows mostly hit in cache (fewer rows, more
+//    warps); one row was 6 % faster still there but 0.1 % slower from
+//    DRAM.  The grouped kernel, 27 % slower at Zipf ids, issues a
+//    broadcast load for every id.
+// Both add each bag's items in bag order.  No shared memory, no atomics,
+// no order between warps.  wgmma and TMA do not apply (no products; rows
+// are gathered, not tiled).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;              // bags per block
+constexpr int kWarps = 8;              // warps a block
+// Rows in flight: a group of a warp's lanes (the grouped kernel), a warp
+// (the warp kernel); kernel.py's ROWS and WARP_ROWS name them.
+constexpr int kRows = 4;
+constexpr int kWarpRows = 2;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRowsInFlight = 4;       // U
-constexpr unsigned kFull = 0xffffffffu;
 
 // VEC elements of a row: the raw load, its widening to float, the store.
 template <typename T, int VEC>
@@ -128,15 +152,124 @@ struct Io<__nv_bfloat16, 1> {
   }
 };
 
-template <typename T, int VEC, int CH>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int VEC, int BPG>
+__global__ void __launch_bounds__(kThreads, 2)
     embedding_bag_kernel(const T* __restrict__ table,
                          const int* __restrict__ indices,
                          const float* __restrict__ weights,
                          T* __restrict__ out, long long v, long long n_bags,
-                         int l, int d) {
+                         int l, int d, int lanes_log2,
+                         long long bags_per_warp) {
+  using IO = Io<T, VEC>;
+  constexpr int kItems = kRows > BPG ? kRows / BPG : 1;  // items a bag
+  const int lane = threadIdx.x & 31;
+  const int groups = 32 >> lanes_log2;
+  const int group = lane >> lanes_log2;
+  // the lane's vector of a row: one, as the row fits the group's lanes
+  const int e = (lane & ((1 << lanes_log2) - 1)) * VEC;
+  const long long warp =
+      (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const long long run0 = warp * bags_per_warp;
+  if (run0 >= n_bags) return;          // the whole warp leaves together
+  const long long run1 = min(run0 + bags_per_warp, n_bags);
+  const long long batch = (long long)groups * BPG;   // bags a step
+  const float nan = __int_as_float(0x7fc00000);
+
+  // a step at (b0, i0): group g's slot (b, i) is item i0 + i of bag
+  // b0 + b * groups + g; its id and weight, loaded a step ahead by every
+  // lane of the group from one address (a broadcast)
+  int id_next[BPG][kItems];
+  float w_next[BPG][kItems];
+  auto fetch = [&](long long b0, int i0) {
+#pragma unroll
+    for (int b = 0; b < BPG; ++b) {
+      const long long bag = b0 + b * groups + group;
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        id_next[b][i] = 0;
+        w_next[b][i] = 0.f;
+        if (bag < run1 && i0 + i < l) {
+          id_next[b][i] = __ldg(indices + bag * l + i0 + i);
+          w_next[b][i] = __ldg(weights + bag * l + i0 + i);
+        }
+      }
+    }
+  };
+
+  float acc[BPG][VEC];
+#pragma unroll
+  for (int b = 0; b < BPG; ++b)
+#pragma unroll
+    for (int x = 0; x < VEC; ++x) acc[b][x] = 0.f;
+  long long b0 = run0;
+  int i0 = 0;
+  fetch(b0, i0);
+  while (b0 < run1) {
+    float w[BPG][kItems];
+    bool valid[BPG][kItems];
+    typename IO::Raw raw[BPG][kItems];
+#pragma unroll
+    for (int b = 0; b < BPG; ++b) {
+      const bool bag_in = b0 + b * groups + group < run1;
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int id = id_next[b][i];
+        w[b][i] = w_next[b][i];
+        valid[b][i] = id >= -v && id < v;
+        const long long r = id < 0 ? (long long)id + v : (long long)id;
+        raw[b][i] = typename IO::Raw{};
+        if (bag_in && i0 + i < l && valid[b][i] && e < d)
+          raw[b][i] = IO::load(table + r * d + e);
+      }
+    }
+    // the next step: the rest of these bags, else the next batch
+    const bool last = i0 + kItems >= l;
+    const long long nb0 = last ? b0 + batch : b0;
+    const int ni0 = last ? 0 : i0 + kItems;
+    if (nb0 < run1) fetch(nb0, ni0);   // while this step's rows fly
+#pragma unroll
+    for (int b = 0; b < BPG; ++b) {
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        if (i0 + i < l) {
+          float x[VEC];
+          IO::widen(raw[b][i], x);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            const float xv = valid[b][i] ? x[k] : nan;
+            acc[b][k] = __fadd_rn(acc[b][k], __fmul_rn(w[b][i], xv));
+          }
+        }
+      }
+    }
+    if (last) {                        // the batch's bags are complete
+#pragma unroll
+      for (int b = 0; b < BPG; ++b) {
+        const long long bag = b0 + b * groups + group;
+        if (bag < run1 && e < d) IO::store(out + bag * d + e, acc[b]);
+#pragma unroll
+        for (int x = 0; x < VEC; ++x) acc[b][x] = 0.f;
+      }
+    }
+    b0 = nb0;
+    i0 = ni0;
+  }
+}
+
+// A warp a bag, for rows that fill a warp (32 lanes of CH vectors): the
+// warp reads 32 of its bag's ids and weights at once, one a lane, and
+// broadcasts them with shuffles; it issues the loads of kWarpRows rows
+// before it adds any.
+template <typename T, int VEC, int CH>
+__global__ void __launch_bounds__(kThreads)
+    embedding_bag_warp_kernel(const T* __restrict__ table,
+                              const int* __restrict__ indices,
+                              const float* __restrict__ weights,
+                              T* __restrict__ out, long long v,
+                              long long n_bags, int l, int d) {
   using IO = Io<T, VEC>;
   constexpr int kSpan = CH * 32 * VEC;
+  constexpr int U = kWarpRows;
   const int lane = threadIdx.x & 31;
   const long long bag = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (bag >= n_bags) return;           // the whole warp leaves together
@@ -159,14 +292,14 @@ __global__ void __launch_bounds__(kThreads)
         my_id = __ldg(bag_ids + i0 + lane);
         my_w = __ldg(bag_w + i0 + lane);
       }
-      for (int j = 0; j < n; j += kRowsInFlight) {
-        typename IO::Raw raw[kRowsInFlight][CH];
-        bool valid[kRowsInFlight];
-        float w[kRowsInFlight];
+      for (int j = 0; j < n; j += U) {
+        typename IO::Raw raw[U][CH];
+        bool valid[U];
+        float w[U];
 #pragma unroll
-        for (int u = 0; u < kRowsInFlight; ++u) {
-          const int id = __shfl_sync(kFull, my_id, (j + u) & 31);
-          w[u] = __shfl_sync(kFull, my_w, (j + u) & 31);
+        for (int u = 0; u < U; ++u) {
+          const int id = __shfl_sync(0xffffffffu, my_id, (j + u) & 31);
+          w[u] = __shfl_sync(0xffffffffu, my_w, (j + u) & 31);
           valid[u] = id >= -v && id < v;
           const long long r = id < 0 ? (long long)id + v : (long long)id;
           const T* row = table + r * d + base;
@@ -179,7 +312,7 @@ __global__ void __launch_bounds__(kThreads)
           }
         }
 #pragma unroll
-        for (int u = 0; u < kRowsInFlight; ++u) {
+        for (int u = 0; u < U; ++u) {
           if (j + u < n) {
 #pragma unroll
             for (int c = 0; c < CH; ++c) {
@@ -204,54 +337,83 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename T, int VEC>
-void launch(const void* table, const void* indices, const void* weights,
-            void* out, long long v, long long n_bags, int l, int d,
-            cudaStream_t s) {
-  const long long blocks = (n_bags + kWarps - 1) / kWarps;
-  const int span = 32 * VEC;
-  const auto t = (const T*)table;
-  const auto ids = (const int*)indices;
-  const auto w = (const float*)weights;
-  const auto o = (T*)out;
-  if (d <= span) {
-    embedding_bag_kernel<T, VEC, 1>
-        <<<(unsigned)blocks, kThreads, 0, s>>>(t, ids, w, o, v, n_bags, l, d);
-  } else if (d <= 2 * span) {
-    embedding_bag_kernel<T, VEC, 2>
-        <<<(unsigned)blocks, kThreads, 0, s>>>(t, ids, w, o, v, n_bags, l, d);
-  } else {
-    embedding_bag_kernel<T, VEC, 4>
-        <<<(unsigned)blocks, kThreads, 0, s>>>(t, ids, w, o, v, n_bags, l, d);
+cudaError_t by_shape(const T* table, const int* indices, const float* weights,
+                     T* out, long long v, long long n_bags, int l, int d,
+                     int lanes_log2, int ch, int bpg, long long bags_per_warp,
+                     int grid, cudaStream_t s) {
+  if (lanes_log2 == 5) {               // a warp a bag
+    if (bags_per_warp != 1) return cudaErrorInvalidValue;
+    if (ch == 1)
+      embedding_bag_warp_kernel<T, VEC, 1><<<grid, kThreads, 0, s>>>(
+          table, indices, weights, out, v, n_bags, l, d);
+    else if (ch == 2)
+      embedding_bag_warp_kernel<T, VEC, 2><<<grid, kThreads, 0, s>>>(
+          table, indices, weights, out, v, n_bags, l, d);
+    else
+      return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
+  if (ch != 1) return cudaErrorInvalidValue;
+#define EB_CASE(BPG_)                                                     \
+  if (bpg == BPG_) {                                                      \
+    embedding_bag_kernel<T, VEC, BPG_><<<grid, kThreads, 0, s>>>(         \
+        table, indices, weights, out, v, n_bags, l, d, lanes_log2,        \
+        bags_per_warp);                                                   \
+    return cudaGetLastError();                                            \
+  }
+  EB_CASE(1)
+  EB_CASE(2)
+  EB_CASE(4)
+#undef EB_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// The kernels' warps a block and rows in flight, so the wrapper's launch
+// plan can be checked against the library.
+extern "C" int embedding_bag_warps() { return kWarps; }
+extern "C" int embedding_bag_rows() { return kRows; }
+extern "C" int embedding_bag_warp_rows() { return kWarpRows; }
+
 // out [n_bags, d] = the bags of indices/weights [n_bags, l] over table
-// [v, d].  bf16 selects a bfloat16 table and output (else float32); vec
-// selects 16-byte loads, which need a 16-byte-aligned table and rows a
-// multiple of 16 bytes long.  Returns the CUDA error of the launch.
+// [v, d], with the launch plan of kernel.py's `plan`: bf16 selects a
+// bfloat16 table and output (else float32); vec selects 16-byte loads,
+// which need a 16-byte-aligned table and rows a multiple of 16 bytes
+// long; 2^lanes_log2 lanes a bag, ch vectors a lane, bpg bags a group a
+// step, bags_per_warp consecutive bags a warp, grid blocks of 8 warps.
+// Returns the CUDA error of the launch.
 extern "C" int embedding_bag_launch(const void* table, const void* indices,
                                     const void* weights, void* out,
                                     long long v, long long n_bags, int l,
-                                    int d, int bf16, int vec, void* stream) {
-  if (n_bags <= 0 || l < 0 || d <= 0 || v < 0)
+                                    int d, int bf16, int vec, int lanes_log2,
+                                    int ch, int bpg, long long bags_per_warp,
+                                    int grid, void* stream) {
+  if (n_bags <= 0 || l < 0 || d <= 0 || v < 0 || grid <= 0 ||
+      bags_per_warp <= 0 || lanes_log2 < 0 || lanes_log2 > 5)
     return (int)cudaErrorInvalidValue;
-  if ((n_bags + kWarps - 1) / kWarps > 0x7fffffffLL)
+  if ((long long)grid * kWarps * bags_per_warp < n_bags)
     return (int)cudaErrorInvalidConfiguration;
+  const auto ids = (const int*)indices;
+  const auto w = (const float*)weights;
   const auto s = (cudaStream_t)stream;
+  cudaError_t err;
   if (bf16) {
-    if (vec) {
-      launch<__nv_bfloat16, 8>(table, indices, weights, out, v, n_bags, l, d,
-                               s);
-    } else {
-      launch<__nv_bfloat16, 1>(table, indices, weights, out, v, n_bags, l, d,
-                               s);
-    }
-  } else if (vec) {
-    launch<float, 4>(table, indices, weights, out, v, n_bags, l, d, s);
+    const auto t = (const __nv_bfloat16*)table;
+    const auto o = (__nv_bfloat16*)out;
+    err = vec ? by_shape<__nv_bfloat16, 8>(t, ids, w, o, v, n_bags, l, d,
+                                           lanes_log2, ch, bpg,
+                                           bags_per_warp, grid, s)
+              : by_shape<__nv_bfloat16, 1>(t, ids, w, o, v, n_bags, l, d,
+                                           lanes_log2, ch, bpg,
+                                           bags_per_warp, grid, s);
   } else {
-    launch<float, 1>(table, indices, weights, out, v, n_bags, l, d, s);
+    const auto t = (const float*)table;
+    const auto o = (float*)out;
+    err = vec ? by_shape<float, 4>(t, ids, w, o, v, n_bags, l, d, lanes_log2,
+                                   ch, bpg, bags_per_warp, grid, s)
+              : by_shape<float, 1>(t, ids, w, o, v, n_bags, l, d, lanes_log2,
+                                   ch, bpg, bags_per_warp, grid, s);
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

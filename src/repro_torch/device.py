@@ -12,3 +12,16 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run on the "
             "host")
     return dev
+
+
+_sm_count = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The CUDA card's streaming multiprocessors, read once a card."""
+    dev = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if dev not in _sm_count:
+        _sm_count[dev] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return _sm_count[dev]

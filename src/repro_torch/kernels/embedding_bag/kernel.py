@@ -3,26 +3,75 @@
 For CUDA tensors it launches the hand-written kernel, or raises; for CPU
 tensors it computes the plain version (:mod:`.ref`).  ``launches`` counts
 kernel launches, and nothing else.
+
+The launch plan is :func:`plan`, a function of the shapes, the table's
+alignment and the card's SM count alone.
 """
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 from .ref import embedding_bag_padded_ref
 
 NAME = "embedding_bag"
 DTYPES = (torch.float32, torch.bfloat16)
+WARPS = 8              # warps a block (kWarps)
+ROWS = 4               # rows a group of lanes has in flight (kRows)
+WARP_ROWS = 2          # rows a warp has in flight, a bag a warp (kWarpRows)
+WARPS_PER_SM = 64      # warps the runs of bags are cut for, per SM (two
+                       # waves or more at the grouped kernel's occupancy)
 launches = 0
+
+
+class Plan(NamedTuple):
+    vec: int           # elements a load: 16 bytes' worth, or 1
+    lanes: int         # lanes a bag (a power of two); 32: a warp a bag
+    ch: int            # vectors a lane a pass (1, or 2 at 32 lanes)
+    bags: int          # bags a group takes a step (1 at 32 lanes)
+    items: int         # rows of each bag in flight a step
+    bags_per_warp: int  # the run of consecutive bags a warp takes
+    grid: int          # blocks of WARPS warps
+    passes: int        # passes over D of ch · lanes · vec elements
+
+
+def plan(b: int, l: int, d: int, elt: int, aligned: bool, sms: int) -> Plan:
+    """The launch of B bags of L items over rows of D elements of ``elt``
+    bytes on a card of ``sms`` SMs; ``aligned``: the table starts on 16
+    bytes.  Rows a multiple of 16 bytes on an aligned table take 16-byte
+    loads.  A row of more than 16 vectors takes the warp kernel: a warp a
+    bag, one or two vectors a lane (wider rows in passes), WARP_ROWS rows
+    in flight.  A narrower row takes the grouped kernel: the fewest
+    lanes (a power of two, at most 16) that hold it, one bag a group, the
+    most bags (a power of two) whose L items fit the group's ROWS rows in
+    flight, else one bag in steps of ROWS items, and runs cut for
+    WARPS_PER_SM warps a SM, a whole number of steps each."""
+    vec = 16 // elt if aligned and (d * elt) % 16 == 0 else 1
+    vectors = -(-d // vec)
+    if vectors > 16:
+        ch = 1 if vectors <= 32 else 2
+        return Plan(vec, 32, ch, 1, WARP_ROWS, 1, max(1, -(-b // WARPS)),
+                    -(-vectors // (32 * ch)))
+    lanes = 1 << max(vectors - 1, 0).bit_length()
+    bags = 1 << max(ROWS // max(l, 1), 1).bit_length() - 1
+    step = 32 // lanes * bags
+    per_warp = -(-b // (sms * WARPS_PER_SM))
+    per_warp = max(1, -(-per_warp // step)) * step
+    warps = -(-b // per_warp)
+    return Plan(vec, lanes, 1, bags, ROWS // bags, per_warp,
+                max(1, -(-warps // WARPS)), 1)
 
 
 def _launcher():
     fn = build.load(NAME).embedding_bag_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
-                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_longlong,
+                                               ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -74,14 +123,16 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     out = torch.empty((b, d), dtype=table.dtype, device=table.device)
     if b == 0 or d == 0:
         return out
-    vec = int(table.data_ptr() % 16 == 0
-              and (d * table.element_size()) % 16 == 0)
+    p = plan(b, l, d, table.element_size(), table.data_ptr() % 16 == 0,
+             sm_count(table.device))
     launch = _launcher()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(table.data_ptr(), indices.data_ptr(),
                      weights.data_ptr(), out.data_ptr(), v, b, l, d,
-                     int(table.dtype == torch.bfloat16), vec, stream)
+                     int(table.dtype == torch.bfloat16), int(p.vec > 1),
+                     p.lanes.bit_length() - 1, p.ch, p.bags,
+                     p.bags_per_warp, p.grid, stream)
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
     launches += 1

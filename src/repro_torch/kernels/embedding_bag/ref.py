@@ -13,8 +13,10 @@ NaN ("fill" mode) — a NaN row stays NaN at weight 0, since 0 · NaN is NaN.
   body's arithmetic (``kernel.py:27-35``): the bag's items added in order,
   ``acc + w·row`` in float32 (float64 for a float64 table), cast to the
   table's dtype at the end.  In float32 this equals the reference's
-  take-plus-einsum and its segment sum bit for bit, and the CUDA kernel
-  does the same operations in the same order.
+  segment sum bit for bit, and its take-plus-einsum in value (at L = 1
+  einsum returns w·row itself, -0.0 for a zero weight on a negative
+  entry, where 0 + w·row is +0.0); the CUDA kernel does the same
+  operations in the same order.
 """
 
 import torch

@@ -17,6 +17,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
 from .ref import gqa_decode_ref
@@ -35,8 +36,6 @@ MAX_D = 256
 SMEM_LIMIT = 232_448   # shared memory a block may use on Hopper (227 KB)
 DTYPES = (torch.float32, torch.bfloat16)
 launches = 0
-
-_sm_count = {}
 
 
 def _launcher():
@@ -153,12 +152,7 @@ def _launch(q, k, v, length, kind: str) -> torch.Tensor:
     out = torch.empty_like(q)
     if b == 0:
         return out
-    dev = q.device.index if q.device.index is not None else \
-        torch.cuda.current_device()
-    sms = _sm_count.get(dev)
-    if sms is None:
-        sms = _sm_count[dev] = \
-            torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = sm_count(q.device)
     launch, tile = _launcher()
     n_split, chunk = splits(b * hkv, s, sms, kind, tile)
     part = torch.empty(b * hkv * n_split * g * (d + 2), dtype=torch.float32,

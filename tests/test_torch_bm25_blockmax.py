@@ -11,17 +11,25 @@ import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.kernels import bm25_blockmax_topk as jax_blockmax_topk
-from repro.kernels import bm25_topk_ref as jax_topk_ref
-from repro.kernels.bm25_blockmax.kernel import blockmax_scores_pallas
-from repro_torch.kernels import build
-from repro_torch.kernels.bm25_blockmax import (blockmax_scores,
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402  (the repository root's card script)
+
+from repro.kernels import bm25_blockmax_topk as jax_blockmax_topk  # noqa
+from repro.kernels import bm25_topk_ref as jax_topk_ref  # noqa: E402
+from repro.kernels.bm25_blockmax.kernel import \
+    blockmax_scores_pallas  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.bm25_blockmax import (blockmax_scores,  # noqa: E402
                                                blockmax_threshold,
                                                bm25_blockmax_topk, kernel,
                                                pruned_fraction)
@@ -48,6 +56,65 @@ def test_plain_sweep_matches_pallas(t, nb, bs):
     assert np.isinf(got).any() and np.isfinite(got).any()
     np.testing.assert_allclose(got[np.isfinite(got)],
                                want[np.isfinite(want)], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("name,t,nb,bs", chip_smoke.SWEEP_EDGES,
+                         ids=[c[0] for c in chip_smoke.SWEEP_EDGES])
+def test_plain_sweep_matches_pallas_at_kernel_edges(name, t, nb, bs):
+    """``chip_smoke.py``'s edge shapes of the CUDA kernel (T past its
+    templates, BS in passes and off the lanes, NB past one round of the
+    grid, impacts off 16 bytes): the plain sweep equals the Pallas kernel
+    (interpret mode) at a θ that prunes about half the blocks, and at 0."""
+    imp = torch.from_numpy(chip_smoke.sweep_edge(t, nb, bs))
+    if name.endswith("off_16_bytes"):
+        imp = chip_smoke.off_16(imp, "cpu")
+    bmax = imp.amax(2)
+    ub = bmax.sum(0)
+    for theta in (np.float32(ub.median()), np.float32(0.0)):
+        want = np.asarray(blockmax_scores_pallas(
+            jnp.asarray(imp.numpy()), jnp.asarray(bmax.numpy()), theta))
+        got = blockmax_scores(imp, bmax, torch.tensor([theta])).numpy()
+        assert np.array_equal(np.isinf(got), np.isinf(want))
+        assert np.isfinite(got).any()
+        np.testing.assert_allclose(got[np.isfinite(got)],
+                                   want[np.isfinite(want)], rtol=1e-6,
+                                   atol=0)
+
+
+def _plan_writes(t, nb, bs, aligned):
+    """How often the launch plan's warps write each (doc block, doc), by
+    the kernel's index arithmetic: warp w of the grid's takes doc block w;
+    lane i writes documents [e, e + vec) of each pass's 32 · vec."""
+    p = kernel.plan(t, nb, bs, aligned)
+    writes = np.zeros((nb, bs), np.int64)
+    span = 32 * p.vec
+    for w in range(min(p.grid * kernel.WARPS, nb)):
+        for e0 in range(0, p.passes * span, span):
+            for lane in range(32):
+                e = e0 + lane * p.vec
+                if e < bs:
+                    writes[w, e:e + p.vec] += 1
+    return p, writes
+
+
+@pytest.mark.parametrize("t,nb,bs", [(8, 69077, 128), (17, 6, 128),
+                                     (3, 5, 132), (4, 7, 96), (2, 4229, 128),
+                                     (1, 1, 1), (0, 4, 128), (3, 2, 1500),
+                                     (16, 1000, 128), (2, 3, 7)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_plan_writes_every_doc_once(t, nb, bs, aligned):
+    p, writes = _plan_writes(t, nb, bs, aligned)
+    assert (writes == 1).all()
+    assert p.vec == (4 if aligned and bs % 4 == 0 else 1)
+    assert p.terms == (t if 1 <= t <= kernel.MAX_TERMS else 0)
+    assert (p.grid - 1) * kernel.WARPS < nb <= p.grid * kernel.WARPS
+
+
+def test_plan_at_deployment_width():
+    """At MS MARCO's [8, 69077, 128]: 16-byte loads, every plane in flight
+    (T = 8 compiled), one pass, 8,635 blocks of 8 warps."""
+    assert kernel.plan(8, 69077, 128, True) \
+        == kernel.Plan(vec=4, terms=8, grid=8635, passes=1)
 
 
 def _parity(imp, k):

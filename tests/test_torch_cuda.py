@@ -60,9 +60,15 @@ def _sparse(seed, t, nb, bs, fill):
 
 
 @pytest.mark.parametrize("t,nb,bs", [(4, 8, 128), (3, 5, 100), (2, 3, 7),
-                                     (3, 2, 1500), (0, 4, 128), (1, 1, 1)])
+                                     (3, 2, 1500), (0, 4, 128), (1, 1, 1)]
+                         + [c[1:] for c in chip_smoke.SWEEP_EDGES])
 def test_sweep_bitwise_equals_plain(cuda_device, t, nb, bs):
-    imp = _sparse(t + nb, t, nb, bs, 0.2).to(cuda_device)
+    """The kernel tests' shapes and ``chip_smoke.py``'s edges (the last,
+    impacts off 16 bytes, on the scalar path)."""
+    imp = _sparse(t + nb, t, nb, bs, 0.2)
+    imp = chip_smoke.off_16(imp, cuda_device) \
+        if (t, nb, bs) == chip_smoke.SWEEP_EDGES[-1][1:] \
+        else imp.to(cuda_device)
     bmax = imp.amax(2)
     ub = ref.term_sum(bmax)
     for theta in (ub.median().reshape(1), torch.zeros(1, device=cuda_device)):
@@ -72,6 +78,42 @@ def test_sweep_bitwise_equals_plain(cuda_device, t, nb, bs):
         assert torch.equal(got, ref.blockmax_scores(imp, bmax, theta))
         assert torch.equal(got.cpu(), ref.blockmax_scores(
             imp.cpu(), bmax.cpu(), theta.cpu()))
+
+
+def test_launch_plans_are_the_library_s(cuda_device):
+    """The wrappers' WARPS and embedding_bag's rows in flight are what the
+    libraries were built with."""
+    from repro_torch.kernels import build
+    assert build.load("bm25_blockmax").bm25_blockmax_warps() == kernel.WARPS
+    lib = build.load("embedding_bag")
+    assert (lib.embedding_bag_warps(), lib.embedding_bag_rows(),
+            lib.embedding_bag_warp_rows()) \
+        == (bag_kernel.WARPS, bag_kernel.ROWS, bag_kernel.WARP_ROWS)
+
+
+def test_launchers_refuse_a_grid_that_leaves_output_unwritten(cuda_device):
+    """17 doc blocks or 17 bags need 3 blocks of 8 warps: at 2 the
+    launchers return cudaErrorInvalidConfiguration (9), launching
+    nothing; at 3 they launch."""
+    stream = torch.cuda.current_stream().cuda_stream
+    imp = torch.zeros(2, 17, 128, device=cuda_device)
+    bmax = torch.zeros(2, 17, device=cuda_device)
+    theta = torch.zeros(1, device=cuda_device)
+    out = torch.empty(17, 128, device=cuda_device)
+    sweep = (imp.data_ptr(), bmax.data_ptr(), theta.data_ptr(),
+             out.data_ptr(), 2, 17, 128, 1)
+    table = torch.zeros(5, 128, device=cuda_device)
+    ids = torch.zeros(17, 3, dtype=torch.int32, device=cuda_device)
+    w = torch.ones(17, 3, device=cuda_device)
+    # a warp a bag: float32, 16-byte loads, 32 lanes, one vector a lane
+    bag = (table.data_ptr(), ids.data_ptr(), w.data_ptr(), out.data_ptr(),
+           5, 17, 3, 128, 0, 1, 5, 1, 1, 1)
+    for launch, args in ((kernel._launcher(), sweep),
+                         (bag_kernel._launcher(), bag)):
+        assert launch(*args, 2, stream) == 9
+        assert launch(*args, 3, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros_like(out))
 
 
 def test_topk_matches_exhaustive_and_host(cuda_device):
@@ -297,7 +339,7 @@ def test_embedding_bag_equals_plain(cuda_device, case):
     the plain version on the card and on the host; bags of one are take."""
     table, idx, w = chip_smoke.bag_case(*case)
     host = embedding_bag_padded_ref(table, idx, w)
-    t = (chip_smoke._off_16(table, cuda_device)
+    t = (chip_smoke.off_16(table, cuda_device)
          if case[0] == "table_off_16_bytes" else table.to(cuda_device))
     i, ww = idx.to(cuda_device), w.to(cuda_device)
     before = bag_kernel.launches
@@ -328,7 +370,7 @@ def test_embedding_bag_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError, match="is on"):
         embedding_bag(table, idx.cpu(), w)
     # a table off 16 bytes is not refused: it takes scalar loads
-    off = chip_smoke._off_16(table.cpu(), cuda_device)
+    off = chip_smoke.off_16(table.cpu(), cuda_device)
     assert torch.equal(embedding_bag(off, idx, w),
                        embedding_bag(table, idx, w))
 

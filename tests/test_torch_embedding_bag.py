@@ -209,20 +209,41 @@ def test_ops_casts_as_the_pallas_wrapper():
     assert torch.equal(want, embedding_bag_padded_ref(table, idx, w))
 
 
+def _pallas_body(table, idx, w):
+    """The Pallas body's arithmetic (``kernel.py:_bag_kernel``) in JAX,
+    outside Pallas (its ``pl.load`` is gone from jax 0.9): acc from zeros,
+    ``acc + w · row`` in float32 item by item, rows by ``jnp.take``, cast
+    once at the end."""
+    acc = jnp.zeros((idx.shape[0], table.shape[1]), jnp.float32)
+    for i in range(idx.shape[1]):
+        acc = acc + w[:, i, None] * jnp.take(table, idx[:, i],
+                                             axis=0).astype(jnp.float32)
+    return acc.astype(table.dtype)
+
+
 @pytest.mark.parametrize("case", chip_smoke.BAG_CASES,
                          ids=[c[0] for c in chip_smoke.BAG_CASES])
 def test_chip_smoke_bag_cases_match_jax(case):
     """Every case of ``chip_smoke.py``'s phase 11 against the reference's
-    padded jnp path: bit for bit in float32, within one bfloat16 ulp."""
+    padded jnp path: bit for bit in float32, within one bfloat16 ulp. At
+    L = 1 einsum returns w·x itself, -0.0 for a zero weight on a negative
+    entry, where the body's 0 + w·x is +0.0: there both sides are compared
+    after ``+ 0.0``, and against the Pallas body's arithmetic run in JAX
+    bit for bit as they stand."""
     table, idx, w = chip_smoke.bag_case(*case)
     got = embedding_bag(table, idx, w).float().numpy()
     jt = jnp.asarray(table.float().numpy())
     if table.dtype == torch.bfloat16:
         jt = jt.astype(jnp.bfloat16)
-    want = np.asarray(jax_ops.embedding_bag_padded(
-        jt, jnp.asarray(idx.numpy()), jnp.asarray(w.numpy()))
-    ).astype(np.float32)
+    ji, jw = jnp.asarray(idx.numpy()), jnp.asarray(w.numpy())
+    want = np.asarray(jax_ops.embedding_bag_padded(jt, ji, jw)
+                      ).astype(np.float32)
+    if idx.shape[1] == 1:
+        body = np.asarray(_pallas_body(jt, ji, jw)).astype(np.float32)
+        np.testing.assert_array_equal(_bits(got), _bits(body))
     if table.dtype == torch.float32:
+        if idx.shape[1] == 1:
+            got, want = got + np.float32(0.0), want + np.float32(0.0)
         np.testing.assert_array_equal(_bits(got), _bits(want))
     else:
         np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
@@ -230,3 +251,83 @@ def test_chip_smoke_bag_cases_match_jax(case):
         ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want[ok]),
                                                   1e-30))) - 7)
         assert (np.abs(got[ok] - want[ok]) <= ulp).all()
+
+
+def _plan_coverage(b, l, d, elt, aligned, sms):
+    """How often the launch plan's lanes add each (bag, item, element) and
+    store each (bag, element), by the kernel's index arithmetic: warp w
+    takes bags [w · run, (w + 1) · run); a step at (b0, i0) gives group g's
+    slot (j, i) item i0 + i of bag b0 + j · groups + g; lane ``sub`` of a
+    group holds elements base + (c · lanes + sub) · vec of each pass."""
+    p = kernel.plan(b, l, d, elt, aligned, sms)
+    groups = 32 // p.lanes
+    span = p.ch * p.lanes * p.vec
+    adds = np.zeros((b, l, d), np.int64)
+    stores = np.zeros((b, d), np.int64)
+    lanes = [c * p.lanes + sub for c in range(p.ch) for sub in range(p.lanes)]
+    for warp in range(p.grid * kernel.WARPS):
+        run0 = warp * p.bags_per_warp
+        if run0 >= b:
+            break
+        run1 = min(run0 + p.bags_per_warp, b)
+        for base in range(0, d, span):
+            b0, i0 = run0, 0
+            while b0 < run1:
+                last = i0 + p.items >= l
+                for g in range(groups):
+                    for j in range(p.bags):
+                        bag = b0 + j * groups + g
+                        if bag >= run1:
+                            continue
+                        for x in lanes:
+                            e = base + x * p.vec
+                            if e >= d:
+                                continue
+                            items = slice(i0, min(i0 + p.items, l))
+                            adds[bag, items, e:e + p.vec] += 1
+                            if last:
+                                stores[bag, e:e + p.vec] += 1
+                b0, i0 = (b0 + groups * p.bags, 0) if last else \
+                    (b0, i0 + p.items)
+    return p, adds, stores
+
+
+@pytest.mark.parametrize("b,l,d,elt", [
+    (1001, 1, 64, 4), (515, 1, 16, 4), (13, 26, 64, 4), (301, 1, 64, 2),
+    (33, 8, 256, 4), (5, 7, 600, 4), (5, 7, 130, 4), (7, 4, 1, 4),
+    (9, 6, 10, 4), (5, 33, 50, 4), (6, 0, 32, 4), (12, 8, 10, 2),
+    (3, 4, 1032, 2), (40, 3, 24, 2), (77, 2, 64, 4), (4000, 1, 256, 4),
+    (7, 3, 20, 4), (9, 2, 17, 4)])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sms", [132, 1])
+def test_plan_adds_every_item_and_stores_every_element_once(b, l, d, elt,
+                                                             aligned, sms):
+    p, adds, stores = _plan_coverage(b, l, d, elt, aligned, sms)
+    assert (adds == 1).all() and (stores == 1).all()
+    assert p.vec == (16 // elt if aligned and d * elt % 16 == 0 else 1)
+    assert p.lanes & (p.lanes - 1) == 0 and p.lanes <= 32
+    if p.lanes == 32:                   # the warp kernel: a warp a bag
+        assert (p.bags, p.items, p.bags_per_warp) \
+            == (1, kernel.WARP_ROWS, 1) and p.ch in (1, 2)
+    else:
+        assert p.ch == 1 and p.bags * p.items == kernel.ROWS
+        assert p.bags * max(l, 1) <= kernel.ROWS or p.bags == 1
+    assert p.bags_per_warp % (32 // p.lanes * p.bags) == 0
+    assert (p.grid - 1) * kernel.WARPS * p.bags_per_warp < max(b, 1)
+
+
+def test_plan_at_serve_bulk():
+    """The two serve_bulk shapes on an H100: the history bag's 1 KB rows
+    take the warp kernel (a bag a warp, two 16-byte vectors a lane, two
+    rows in flight); DLRM's 256-byte rows take the grouped kernel, two
+    bags of one to a warp, 4 bags a group a step, runs cut for 64 warps a
+    SM."""
+    hist = kernel.plan(262_144, 8, 256, 4, True, 132)
+    assert hist == kernel.Plan(vec=4, lanes=32, ch=2, bags=1, items=2,
+                               bags_per_warp=1, grid=32_768, passes=1)
+    dlrm = kernel.plan(6_815_744, 1, 64, 4, True, 132)
+    assert (dlrm.vec, dlrm.lanes, dlrm.ch, dlrm.bags, dlrm.items) \
+        == (4, 16, 1, 4, 1)
+    warps = -(-6_815_744 // dlrm.bags_per_warp)
+    assert 132 * kernel.WARPS_PER_SM // 2 <= warps \
+        <= 132 * kernel.WARPS_PER_SM

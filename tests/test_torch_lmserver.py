@@ -154,3 +154,33 @@ def test_chip_smoke_deploy_check_sees_every_position(monkeypatch, wrong):
     monkeypatch.setattr(pkg, "gqa_decode", bad)
     with pytest.raises(AssertionError, match="from the plain version"):
         chip_smoke.check_deploy("cpu", q, k, v, length)
+
+
+@pytest.mark.parametrize("single_bf16", [False, True],
+                         ids=["p_hi_plus_lo", "p_single_bf16"])
+def test_chip_smoke_conditioned_check_sees_single_bf16_p(monkeypatch,
+                                                         single_bf16):
+    """Phase 9's conditioned check at a bfloat16 smoke size, with the mma
+    kernel's arithmetic (``emulate_mma``) in place of the decode's
+    attention (the reference decode takes the plain version): P split
+    into bf16 hi + lo passes it; P rounded once to bf16 fails it, and so
+    do the check's own controls (the plain version with P rounded once to
+    bf16, an fp8-weight decode)."""
+    from test_torch_gqa_decode import emulate_mma
+    gqa = importlib.import_module("repro_torch.kernels.gqa_decode.kernel")
+    monkeypatch.setattr(gqa, "gqa_decode", lambda q, k, v, n: emulate_mma(
+        q, k, v, n, single_bf16=single_bf16))
+    cfg = dataclasses.replace(get_config("qwen2.5-14b", smoke=True),
+                              dtype="bfloat16")
+    prompts = chip_smoke.rag_prompts(cfg.vocab, 4, (64, 200))
+
+    def check():
+        return chip_smoke.conditioned_check(torch.device("cpu"), cfg,
+                                            prompts, 4, 256, 8)
+    if single_bf16:
+        with pytest.raises(AssertionError, match="conditioned decode"):
+            check()
+    else:
+        row = check()
+        assert row["ratio"] <= chip_smoke.COND_RATIO \
+            < min(row["single_bf16_p_ratio"], row["fp8_ratio"])

@@ -2,8 +2,9 @@
 
 ``bm25_topk`` on the CPU must give the reference scores bit for bit and the
 same ids in the same order, ties included; ``stable_topk`` must order like
-a stable descending sort.  The GCL array algebra (τ/ρ, G-reduction, the
-containment and combination operators) must give the reference's int32
+``jax.lax.top_k`` (a stable descending sort with -0.0 below +0.0).  The
+GCL array algebra (τ/ρ, G-reduction, the containment and combination
+operators) must give the reference's int32
 outputs bit for bit and its values exactly, on the property-test lists of
 the reference's ``tests/test_vectorized.py``, and the lazy engine's
 solutions.
@@ -13,6 +14,7 @@ import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -76,21 +78,42 @@ def test_bm25_topk_padding_never_scores():
 
 @pytest.mark.parametrize("n,k", [(1, 1), (50, 7), (1000, 1000), (4097, 33)])
 def test_stable_topk_matches_stable_sort(n, k):
+    """Values descending, ties by the lower index, -0.0 below +0.0: the
+    order of ``jax.lax.top_k`` on the same rows."""
     rng = np.random.default_rng(n)
     x = rng.choice(np.array([-np.inf, -2.5, -0.0, 0.0, 1.0, 1.0 + 2**-23,
                              3.0, np.inf], np.float32), size=(3, n))
     x[1] = rng.standard_normal(n).astype(np.float32)
     vals, idx = tvec.stable_topk(torch.from_numpy(x), k)
-    for r in range(3):
-        # stable descending sort; -0.0 ranks with +0.0
-        order = np.argsort(-(x[r] + np.float32(0.0)), kind="stable")[:k]
-        np.testing.assert_array_equal(idx[r].numpy(), order)
-        np.testing.assert_array_equal(vals[r].numpy(), x[r][order])
+    want_v, want_i = jax.lax.top_k(jnp.asarray(x), k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(vals.numpy().view(np.int32),
+                                  np.asarray(want_v).view(np.int32))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_stable_topk_signed_zeros_infinities_subnormals(seed):
+    """Rows drawn from ±0.0, ±1, ±inf and the ±smallest subnormals: the
+    indices and the value bits equal ``lax.top_k``'s, row by row."""
+    rng = np.random.default_rng(seed)
+    pool = np.array([0.0, -0.0, 1.0, -1.0, np.inf, -np.inf, 1e-45, -1e-45,
+                     2e-45], np.float32)
+    x = rng.choice(pool, size=(100, 50)).astype(np.float32)
+    x[0] = np.array([0.0, -0.0, 0.0, -0.0, 1.0, -1.0] * 8 + [0.0, -0.0],
+                    np.float32)
+    for k in (1, 20, 50):
+        vals, idx = tvec.stable_topk(torch.from_numpy(x), k)
+        want_v, want_i = jax.lax.top_k(jnp.asarray(x), k)
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(vals.numpy().view(np.int32),
+                                      np.asarray(want_v).view(np.int32))
+    assert tvec.stable_topk(torch.from_numpy(x[:1, :6]), 6)[1].tolist() \
+        == [[4, 0, 2, 1, 3, 5]]
 
 
 def test_stable_topk_matches_lax_top_k_ties():
     x = np.array([[1.0, 3.0, 3.0, 0.0, 3.0, 1.0, 0.0]], np.float32)
-    jv, ji = __import__("jax").lax.top_k(jnp.asarray(x), 6)
+    jv, ji = jax.lax.top_k(jnp.asarray(x), 6)
     tv, ti = tvec.stable_topk(torch.from_numpy(x), 6)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
