@@ -31,7 +31,11 @@ non-zero:
 4. join_small: the interval_join kernel against its plain version (on the
    card and on the host) and the dense all-pairs definition, both modes,
    at the kernel tests' shapes, empty lists, single elements, lengths off
-   the tile, and an A in no order — exact;
+   the tile, an A in no order, and cases that put a tile on each of the
+   kernel's paths (a window one under, at and one over the budget, A in no
+   order and sparse A over dense B, A with PAD gaps, an all-PAD A, A or B
+   off 16 bytes) — exact, the kernel's tiles by path equal to
+   ``tile_paths``'s;
 5. structured, the second slice's main path: eight query-language queries
    that use every operator, on phase 2's warren, solved by the lazy host
    engine (``query.solve``) and by the vectorized operators composed by
@@ -43,10 +47,12 @@ non-zero:
    lazy and on the card: equal counts and aggregates, query 1's values bit
    for bit;
 7. deploy_join: interval_join at MS MARCO v1 passage's width, GC-lists
-   made on the card from the seed — J1 ``word << [30 % of passages]`` and
-   J2 ``[:] >> word`` — against its plain version and a numpy oracle,
-   timed against the plain version, ``torch.searchsorted`` (the nearest
-   single call), the whole vectorized operator and the memory bound;
+   made on the card from the seed — J1 ``word << [30 % of passages]``, J2
+   ``[:] >> word``, and J1 with A in no order and A off 16 bytes — against
+   its plain version and a numpy oracle; the kernel's tiles by path
+   (sorted J1 and J2 must stage every valid tile); timed in turns with
+   ``torch.searchsorted`` (the nearest single call), and against the
+   plain version, the whole vectorized operator and the memory bound;
 8. decode_small: the gqa_decode kernel against its plain version (on the
    card and on the host), float32 and bfloat16, at the reference kernel
    test's sweep, length 0, length = S, length > S, S off the tile, G = 5
@@ -776,33 +782,109 @@ def random_gc_list(rng, n: int, span: int):
     return lst.starts, lst.ends
 
 
+def join_window_lists(seed: int, mode: str, w: int, na: int = 2048,
+                      nb: int = 2000, first: int = 500):
+    """A (``na`` entries) and a GC-list B (``nb``) whose window for A —
+    B[lo .. min(hi, NB-1)], lo and hi the lower bounds of A's least and
+    greatest probe key (a_e for contained_in, a_s for containing) in B's —
+    holds exactly ``w`` entries, from B[first].  Starts and ends strictly
+    increase in B; A's keys lie between B[first]'s and B[first + w - 1]'s,
+    both included, and about half of A meets its candidate."""
+    rng = np.random.default_rng(seed)
+    b_s = np.arange(nb, dtype=np.int64) * 10 + rng.integers(0, 3, nb)
+    b_e = b_s + rng.integers(2, 9, nb)
+    contained = mode == "contained_in"
+    bkey = b_e if contained else b_s
+    lo, hi = bkey[first], bkey[first + w - 1]
+    keys = np.sort(np.concatenate([[lo, hi],
+                                   rng.integers(lo, hi + 1, na - 2)]))
+    if contained:
+        a = (keys - rng.integers(0, 12, na), keys)
+    else:
+        a = (keys, keys + rng.integers(0, 20, na))
+    return a, (b_s, b_e)
+
+
+def pad_gaps(a, seed: int):
+    """A as a combination operator leaves it before ``compact``:
+    ``one_of``'s G-reduced candidates in start order, the dropped ones PAD
+    in place."""
+    import torch
+    from repro_torch.core.vectorized import one_of
+    rng = np.random.default_rng(seed)
+    shift = rng.integers(0, 3, len(a[0]))
+    s, e = one_of(*(torch.from_numpy(np.asarray(x, np.int32)) for x in (
+        *a, a[0] + shift, a[1] + shift + rng.integers(0, 30, len(a[0])))))
+    return s.numpy().astype(np.int64), e.numpy().astype(np.int64)
+
+
+# cases that put the kernel's first tile on each path (join_small_cases'
+# last field): the window one under, at and one over the budget in each
+# mode, an A in no order and a sparse A over a dense B (the wide tiles'
+# kernel), an A with PAD gaps, an all-PAD A (nothing to search), and A or
+# B 4 bytes off 16-byte alignment (scalar loads; 4-byte copies of B)
+JOIN_PATH_CASES = [
+    *(f"window_{side}_budget_{mode}" for mode in JOIN_MODES
+      for side in ("under", "at", "over")),
+    "a_in_no_order_over_large_b", "sparse_a_over_dense_b", "a_with_pad_gaps",
+    "all_pad_a", "a_off_16_bytes", "b_off_16_bytes"]
+
+
 def join_small_cases():
-    """(name, A, B) as (starts, ends) pairs, from fixed seeds: the kernel
-    tests' sweep, empty lists, single elements, lengths off the 256-entry
-    tile, and an A in no order."""
+    """(name, A, B, modes, the first tile's path or None) with A and B as
+    (starts, ends), from fixed seeds: the kernel tests' sweep, empty lists,
+    single elements, lengths off the tile, an A in no order, and
+    JOIN_PATH_CASES at the wrapper's plan's budget."""
+    from repro_torch.kernels.interval_join.kernel import BUDGET
+    both = tuple(JOIN_MODES)
     cases = []
     for na, nb in [(16, 16), (100, 37), (513, 257), (1000, 3)]:
         rng = np.random.default_rng(na * 1000 + nb)
         cases.append((f"sweep_{na}x{nb}", random_gc_list(rng, na, 10_000),
-                      random_gc_list(rng, nb, 10_000)))
+                      random_gc_list(rng, nb, 10_000), both, None))
     empty = (np.zeros(0, np.int64), np.zeros(0, np.int64))
     one = (np.array([5]), np.array([9]))
-    cases += [("empty_a", empty, one), ("empty_b", one, empty),
-              ("empty_both", empty, empty)]
+    cases += [("empty_a", empty, one, both, None),
+              ("empty_b", one, empty, both, None),
+              ("empty_both", empty, empty, both, None)]
     for a, b in [((5, 9), (4, 10)), ((4, 10), (5, 9)), ((5, 9), (5, 9)),
                  ((5, 9), (20, 30))]:
         cases.append((f"single_{a[0]}_{a[1]}_in_{b[0]}_{b[1]}",
                       (np.array([a[0]]), np.array([a[1]])),
-                      (np.array([b[0]]), np.array([b[1]]))))
+                      (np.array([b[0]]), np.array([b[1]])), both, None))
     for na, nb in [(13, 5), (20, 17), (1, 9), (257, 3), (4099, 771)]:
         rng = np.random.default_rng(na * 100 + nb)
         cases.append((f"ragged_{na}x{nb}", random_gc_list(rng, na, 60_000),
-                      random_gc_list(rng, nb, 60_000)))
+                      random_gc_list(rng, nb, 60_000), both, None))
     rng = np.random.default_rng(11)
     a_s, a_e = random_gc_list(rng, 5000, 60_000)
     perm = rng.permutation(len(a_s))
     cases.append(("a_in_no_order", (a_s[perm], a_e[perm]),
-                  random_gc_list(rng, 700, 60_000)))
+                  random_gc_list(rng, 700, 60_000), both, None))
+
+    for mode in JOIN_MODES:
+        for side, delta, path in [("under", -1, "staged"), ("at", 0, "staged"),
+                                  ("over", 1, "device")]:
+            a, b = join_window_lists(BUDGET + delta, mode, BUDGET + delta)
+            cases.append((f"window_{side}_budget_{mode}", a, b, (mode,),
+                          path))
+    rng = np.random.default_rng(12)
+    a_s, a_e = random_gc_list(rng, 3000, 10 ** 6)
+    perm = rng.permutation(len(a_s))
+    cases += [
+        ("a_in_no_order_over_large_b", (a_s[perm], a_e[perm]),
+         random_gc_list(rng, 20_000, 10 ** 6), both, "device"),
+        ("sparse_a_over_dense_b", random_gc_list(rng, 300, 10 ** 6),
+         random_gc_list(rng, 30_000, 10 ** 6), both, "device")]
+    a, b = join_window_lists(13, "contained_in", 600, na=2000)
+    cases.append(("a_with_pad_gaps", pad_gaps(a, 13), b, both, None))
+    pad = np.full(3000, int(2 ** 31 - 1), np.int64)
+    cases.append(("all_pad_a", (pad, pad), b, both, "none"))
+    rng = np.random.default_rng(14)
+    cases += [(f"{side}_off_16_bytes", random_gc_list(rng, 3000, 60_000),
+               random_gc_list(rng, 900, 60_000), both, None)
+              for side in ("a", "b")]
+    assert [c[0] for c in cases[-len(JOIN_PATH_CASES):]] == JOIN_PATH_CASES
     return cases
 
 
@@ -817,18 +899,42 @@ def dense_join(a, b, mode: str) -> np.ndarray:
     return hit.any(axis=1).astype(np.int32)
 
 
+def join_paths(a_s, a_e, b_s, b_e, mode: str, counts=None) -> dict:
+    """The tiles' paths under the wrapper's plan, from the lists
+    (``kernel.tile_paths``); checked equal to the kernel's own ``counts``
+    where it ran (int32 [3]: staged, device memory, none)."""
+    from repro_torch.kernels.interval_join import kernel as join_kernel
+    p = join_kernel.plan(a_s.shape[0], b_s.shape[0], True)
+    paths = join_kernel.tile_paths(a_s, a_e, b_s, b_e, mode, p)
+    paths["budget"] = p.budget
+    if counts is not None:
+        got = dict(zip(("staged", "device", "none"), counts.tolist()))
+        check(got == {k: paths[k] for k in got},
+              f"the kernel's tiles by path {got} differ from tile_paths' "
+              f"{ {k: paths[k] for k in got} }")
+    return paths
+
+
 def phase_join_small(dev) -> int:
     import torch
     from repro_torch.core.vectorized import pack
     from repro_torch.kernels.interval_join import interval_join, ref
+    on_card = torch.device(dev).type == "cuda"
     tail = 3                    # PAD entries after every list
     mismatches = 0
     names = []
-    for name, a, b in join_small_cases():
+    tiles = {"staged": 0, "device": 0, "none": 0}
+    for name, a, b, modes, first_path in join_small_cases():
         a_s, a_e, _ = pack(a[0], a[1], size=len(a[0]) + tail, device=dev)
         b_s, b_e, _ = pack(b[0], b[1], size=len(b[0]) + tail, device=dev)
-        for mode in JOIN_MODES:
-            got = interval_join(a_s, a_e, b_s, b_e, mode=mode)
+        if name == "a_off_16_bytes":
+            a_s, a_e = off_16(a_s, dev), off_16(a_e, dev)
+        if name == "b_off_16_bytes":
+            b_s, b_e = off_16(b_s, dev), off_16(b_e, dev)
+        for mode in modes:
+            counts = (torch.zeros(3, dtype=torch.int32, device=dev)
+                      if on_card else None)
+            got = interval_join(a_s, a_e, b_s, b_e, mode=mode, counts=counts)
             want = ref.MODES[mode](a_s, a_e, b_s, b_e)
             host = ref.MODES[mode](a_s.cpu(), a_e.cpu(), b_s.cpu(), b_e.cpu())
             dense = np.concatenate([dense_join(a, b, mode),
@@ -838,6 +944,16 @@ def phase_join_small(dev) -> int:
             check(got.dtype == torch.int32 and bad == 0,
                   f"{name}/{mode}: {bad} mismatches against the plain join")
             mismatches += bad
+            paths = join_paths(a_s, a_e, b_s, b_e, mode, counts)
+            for k in tiles:
+                tiles[k] += paths[k]
+            if first_path is not None:
+                w = int(paths["windows"][0])
+                path = ("none" if w < 0 else "staged"
+                        if w <= paths["budget"] else "device")
+                check(path == first_path, f"{name}/{mode}: the first tile's "
+                                          f"window of {w} takes the {path} "
+                                          f"path, not {first_path}")
             # a zero-length B matches nothing; a zero-length A launches
             # nothing
             got = interval_join(a_s, a_e, b_s[:0], b_e[:0], mode=mode)
@@ -848,7 +964,9 @@ def phase_join_small(dev) -> int:
         names.append(name)
     _sync(dev)
     emit("join_small", cases=names, modes=list(JOIN_MODES),
-         mismatches=mismatches,
+         mismatches=mismatches, tiles=tiles,
+         tiles_from="the kernel's counts, equal to tile_paths" if on_card
+         else "tile_paths (no kernel on the CPU)",
          tolerance="exact: kernel == plain on the card == plain on the host "
                    "== the dense all-pairs definition")
     return mismatches
@@ -1214,10 +1332,11 @@ def join_bound(na: int, nb: int, bw: float, flops: float):
 
 
 def deploy_join_cases(dev, n_passages: int):
-    """J1 and J2 over the passage space, made on ``dev`` from the seed:
-    {name: (mode, A, B, host oracle)}.  A single-token interval's start
-    and end are equal but lie in separate buffers, as ``pack`` lays them
-    out, so the kernel reads both."""
+    """J1 and J2 over the passage space, made on ``dev`` from the seed, and
+    J1 again with A in no order and with A 4 bytes off 16-byte alignment:
+    {name: (mode, A, B, host oracle)}.  A single-token interval's start and
+    end are equal but lie in separate buffers, as ``pack`` lays them out,
+    so the kernel reads both."""
     import torch
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 3)
@@ -1225,16 +1344,25 @@ def deploy_join_cases(dev, n_passages: int):
     selected = torch.rand(p_s.shape[0], generator=g, device=dev) < 0.30
     j1 = term_occurrences(dev, g, tokens, 0.05)
     j2 = term_occurrences(dev, g, tokens, 0.005)
+    perm = torch.randperm(j1.shape[0], generator=g, device=dev)
     h = {k: x.cpu().numpy() for k, x in (("p_s", p_s), ("p_e", p_e),
                                           ("sel", selected), ("j1", j1),
-                                          ("j2", j2))}
+                                          ("j2", j2), ("perm", perm))}
+    j1_b = (p_s[selected], p_e[selected])
     return tokens, {
-        "J1": ("contained_in", (j1, j1.clone()),
-               (p_s[selected], p_e[selected]),
+        "J1": ("contained_in", (j1, j1.clone()), j1_b,
                lambda: oracle_contained_in(h["j1"], h["p_s"], h["p_e"],
                                            h["sel"])),
         "J2": ("containing", (p_s, p_e), (j2, j2.clone()),
                lambda: oracle_containing(h["p_s"], h["p_e"], h["j2"])),
+        "J1_no_order": ("contained_in", (j1[perm], j1[perm]), j1_b,
+                        lambda: oracle_contained_in(h["j1"][h["perm"]],
+                                                    h["p_s"], h["p_e"],
+                                                    h["sel"])),
+        "J1_off_16": ("contained_in", (off_16(j1, dev), off_16(j1, dev)),
+                      j1_b,
+                      lambda: oracle_contained_in(h["j1"], h["p_s"],
+                                                  h["p_e"], h["sel"])),
     }
 
 
@@ -1254,34 +1382,47 @@ def phase_deploy_join(dev, bw, flops, n_passages: int = MSMARCO_PASSAGES):
         check(len({x.data_ptr() for x in (a_s, a_e, b_s, b_e)}) == 4,
               f"{name}: two of the lists share a buffer, which the byte "
               f"bound does not count")
-        got = interval_join(a_s, a_e, b_s, b_e, mode=mode)
+        counts = (torch.zeros(3, dtype=torch.int32, device=dev)
+                  if torch.device(dev).type == "cuda" else None)
+        got = interval_join(a_s, a_e, b_s, b_e, mode=mode, counts=counts)
         want = ref.MODES[mode](a_s, a_e, b_s, b_e)
         vs_plain = int((got != want).sum())
         vs_oracle = int((got.cpu().numpy() != oracle()).sum())
         check(vs_plain == 0 and vs_oracle == 0,
               f"{name}: {vs_plain} mismatches against the plain join, "
               f"{vs_oracle} against the host oracle")
+        paths = join_paths(a_s, a_e, b_s, b_e, mode, counts)
+        tiles = {k: paths[k] for k in ("staged", "device", "none")}
+        valid_tiles = tiles["staged"] + tiles["device"]
+        if name in ("J1", "J2"):        # sorted: every valid tile staged
+            check(valid_tiles > 0 and tiles["staged"] == valid_tiles,
+                  f"{name}: {tiles['device']} of {valid_tiles} valid tiles "
+                  f"left the shared-memory path")
         a_v = torch.zeros(na, dtype=torch.float32, device=dev)
         op = V.contained_in if mode == "contained_in" else V.containing
         probe, keys = (b_e, a_e) if mode == "contained_in" else (b_s, a_s)
-        kernel_ms = time_cuda(lambda: interval_join(a_s, a_e, b_s, b_e,
-                                                    mode=mode),
-                              flush=flush.zero_)
+        turns_ms, turns = time_in_turns({
+            "kernel": lambda: interval_join(a_s, a_e, b_s, b_e, mode=mode),
+            "library": lambda: torch.searchsorted(probe, keys)},
+            flush=flush.zero_)
         plain_ms = time_cuda(lambda: ref.MODES[mode](a_s, a_e, b_s, b_e),
                              flush=flush.zero_)
-        library_ms = time_cuda(lambda: torch.searchsorted(probe, keys),
-                               flush=flush.zero_)
         operator_ms = time_cuda(lambda: op(a_s, a_e, a_v, b_s, b_e),
                                 flush=flush.zero_)
         bound_ms, bound_by, nbytes = join_bound(na, nb, bw, flops)
         side = "ends" if mode == "contained_in" else "starts"
+        kernel_ms = turns_ms["kernel"]
         rows[name] = dict(
             mode=mode, shape=[na, nb], hits=int(got.sum()),
-            mismatches=vs_plain + vs_oracle, kernel_ms=kernel_ms,
+            mismatches=vs_plain + vs_oracle, tiles=tiles,
+            valid_tiles=valid_tiles, budget=paths["budget"],
+            kernel_ms=kernel_ms, kernel_turns=turns["kernel"],
             bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
-            plain_ms=plain_ms, library_ms=library_ms,
+            share_of_bound=bound_ms / kernel_ms, plain_ms=plain_ms,
+            library_ms=turns_ms["library"], library_turns=turns["library"],
             library_call=f"torch.searchsorted of A's {side} in B's {side} "
                          f"(nearest call; computes no mask)",
+            kernel_over_library=kernel_ms / turns_ms["library"],
             operator_ms=operator_ms,
             kernel_share_of_operator=kernel_ms / operator_ms)
         emit("deploy_join", case=name, **rows[name])
@@ -2424,16 +2565,24 @@ def main() -> int:
         "name": "interval_join", "route": "cuda",
         "source": "src/repro_torch/csrc/interval_join.cu",
         "replaces": "src/repro/kernels/interval_join/kernel.py:57",
+        "design": "a tile of 2048 elements of A a block (8 a thread, "
+                  "16-byte loads); the tile's window of B bounded by a "
+                  "block-wide 256-ary search, copied to shared memory by "
+                  "cp.async and searched there when it holds at most the "
+                  "budget; the wider tiles listed for the first design's "
+                  "kernel, which the last block tail-launches",
         "launches": join_launches,
         "max_abs_err": float(join_mismatches + sum(
             j["mismatches"] for j in joins.values())),
         "ms": j1["kernel_ms"], "kernel_ms": j1["kernel_ms"],
         "plain_ms": j1["plain_ms"], "library_ms": j1["library_ms"],
         "bound_ms": j1["bound_ms"], "bound_by": j1["bound_by"],
-        "shape": j1["shape"], "mode": j1["mode"],
-        "J2": {k: joins["J2"][k] for k in (
+        "shape": j1["shape"], "mode": j1["mode"], "tiles": j1["tiles"],
+        "operator_ms": j1["operator_ms"],
+        **{case: {k: joins[case][k] for k in (
             "shape", "mode", "kernel_ms", "plain_ms", "library_ms",
-            "bound_ms", "bound_by")},
+            "bound_ms", "bound_by", "operator_ms", "tiles")}
+           for case in ("J2", "J1_no_order", "J1_off_16")},
     }, {
         "name": "gqa_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/gqa_decode.cu",

@@ -23,6 +23,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# a kernel that launches another from the device (a tail launch) is built
+# relocatable and linked with the device runtime
+DEVICE_LAUNCH = {"interval_join"}
+DEVICE_LAUNCH_FLAGS = (["-rdc=true"], ["-lcudadevrt"])
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -60,8 +64,10 @@ def build(names: Sequence[str], verbose: bool = False) -> Dict[str, dict]:
         if not _stale(name):
             continue
         tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
-        cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        pre, post = DEVICE_LAUNCH_FLAGS if name in DEVICE_LAUNCH else ([], [])
+        cmd = [nvcc(), *NVCC_FLAGS, *pre,
+               *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(CSRC / f"{name}.cu"), *post]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     out = {}

@@ -228,6 +228,80 @@ def test_interval_join_rejects_bad_input(cuda_device):
         interval_join(x, x, x.cpu(), x.cpu())
 
 
+def _join_case(name, device):
+    """chip_smoke's join case ``name``, packed on ``device`` with 3 PAD
+    entries after each list, placed off 16 bytes where it says so."""
+    (a, b, modes, first_path), = [c[1:] for c in chip_smoke.join_small_cases()
+                                  if c[0] == name]
+    a_s, a_e, _ = pack(*a, size=len(a[0]) + 3, device=device)
+    b_s, b_e, _ = pack(*b, size=len(b[0]) + 3, device=device)
+    if name == "a_off_16_bytes":
+        a_s, a_e = (chip_smoke.off_16(x, device) for x in (a_s, a_e))
+    if name == "b_off_16_bytes":
+        b_s, b_e = (chip_smoke.off_16(x, device) for x in (b_s, b_e))
+    return (a_s, a_e, b_s, b_e), modes, first_path
+
+
+@pytest.mark.parametrize("case", chip_smoke.JOIN_PATH_CASES)
+def test_interval_join_paths(cuda_device, case):
+    """Tiles on each of the kernel's paths — the window one under, at and
+    one over the budget, A in no order, sparse A over dense B (the wide
+    tiles' kernel), PAD gaps, all PAD, A or B off 16 bytes: exact against
+    the plain version on the card and on the host, one launch a call, and
+    the kernel's tiles by path those of ``tile_paths``."""
+    lists, modes, first_path = _join_case(case, cuda_device)
+    for mode in modes:
+        counts = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+        before = join_kernel.launches
+        got = interval_join(*lists, mode=mode, counts=counts)
+        assert join_kernel.launches == before + 1
+        assert torch.equal(got, JOIN_MODES[mode](*lists))
+        assert torch.equal(got.cpu(), JOIN_MODES[mode](
+            *(x.cpu() for x in lists)))
+        paths = chip_smoke.join_paths(*lists, mode, counts)
+        if first_path is not None:
+            w = int(paths["windows"][0])
+            assert (w < 0, 0 <= w <= paths["budget"]) == \
+                (first_path == "none", first_path == "staged")
+
+
+def _shuffled_join(device, n=600_000, nb=40_000, seed=21):
+    """A of ``n`` entries in no order over a GC-list B, packed on
+    ``device``: about 290 tiles, more than a grid that searches its wide
+    tiles in place, so the wide tiles' kernel is tail-launched."""
+    rng = np.random.default_rng(seed)
+    a_s = np.cumsum(rng.integers(2, 60, n))
+    a_e = a_s + rng.integers(0, 2, n)
+    b_s = np.cumsum(rng.integers(100, 1500, nb))
+    b_e = b_s + rng.integers(0, 90, nb)
+    perm = rng.permutation(n)
+    return [*pack(a_s[perm], a_e[perm], device=device)[:2],
+            *pack(b_s, b_e, device=device)[:2]]
+
+
+def test_interval_join_tail_launch_and_counter(cuda_device):
+    """Wide tiles past the in-place grid go to the tail-launched kernel:
+    exact on the default stream and on a side stream, before and after a
+    staged launch, and the launch's counter is zero after each."""
+    wide = _shuffled_join(cuda_device)
+    staged, _, _ = _join_case("window_at_budget_containing", cuda_device)
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            for lists in (wide, staged, wide):
+                for mode in JOIN_MODES:
+                    counts = torch.zeros(3, dtype=torch.int32,
+                                         device=cuda_device)
+                    got = interval_join(*lists, mode=mode, counts=counts)
+                    assert torch.equal(got, JOIN_MODES[mode](*lists))
+                    chip_smoke.join_paths(*lists, mode, counts)
+            ctrl = join_kernel._ctrl(wide[0].device, stream.cuda_stream)
+        torch.cuda.synchronize()
+        assert ctrl.tolist() == [0]
+    paths = chip_smoke.join_paths(*wide, "contained_in")
+    assert paths["device"] > 132 and paths["staged"] == 0
+
+
 def test_vectorized_contained_in_on_card_matches_host(cuda_device):
     a = _gc(3, 2000, 40_000)
     b = _gc(4, 300, 40_000)
