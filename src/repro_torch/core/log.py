@@ -1,7 +1,8 @@
 """Durable transaction log for the dynamic index (paper §5).
 
-Append-only file of compressed msgpack frames (zstd when available, zlib
-otherwise — see core/codec.py; the codec byte lives in the blob header):
+Append-only file of compressed MessagePack frames (``core/packing.py``;
+zstd when available, zlib otherwise — see core/codec.py; the codec byte
+lives in the blob header):
 
   {"t": "ready",  "seq": n, "base": p, "length": L, ...payload}
   {"t": "commit", "seq": n}
@@ -15,7 +16,7 @@ snapshot frame plus the tail of still-live transactions.
 
 With ``path=None`` the log is in memory and keeps the record dicts
 themselves (records are never mutated after they are appended), so the
-in-memory form needs neither msgpack nor a codec.
+in-memory form needs neither packing nor a codec.
 """
 
 from __future__ import annotations
@@ -25,14 +26,13 @@ import struct
 import threading
 from typing import Any, Dict, Iterator, List, Optional
 
-from . import codec
+from . import codec, packing
 
 _MAGIC = b"ANOTLOG1"
 
 
 def _pack(record: Dict[str, Any]) -> bytes:
-    import msgpack
-    payload = codec.compress(msgpack.packb(record, use_bin_type=True))
+    payload = codec.compress(packing.packb(record))
     return struct.pack("<I", len(payload)) + payload
 
 
@@ -73,7 +73,6 @@ class TransactionLog:
                 records = list(self._mem)
             yield from records
             return
-        import msgpack
         with self._lock:
             if self._fh is not None:
                 self._fh.flush()
@@ -89,8 +88,7 @@ class TransactionLog:
                 payload = fh.read(n)
                 if len(payload) < n:
                     return  # torn tail frame: treat as not written
-                yield msgpack.unpackb(codec.decompress(payload),
-                                      raw=False, strict_map_key=False)
+                yield packing.unpackb(codec.decompress(payload))
 
     def compact(self, snapshot_records: List[Dict[str, Any]]) -> None:
         """Atomically replace the log with the given records."""

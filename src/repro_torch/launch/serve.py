@@ -2,11 +2,14 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --docs 1000
   PYTHONPATH=src python -m repro_torch.launch.serve --docs 1000 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --docs 1000 --shards 4 \
+      --async-scatter
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \
       --arch qwen2.5-14b --tokens 8 --device cpu
 
 ``--mode retrieval`` (the default) indexes ``--docs`` seeded documents and
-serves BM25 queries; ``--mode lm`` decodes four prompts through
+serves BM25 queries, from a ``ShardedWarren`` of ``--shards`` groups served
+natively when ``--shards`` > 1; ``--mode lm`` decodes four prompts through
 ``LMServer`` with the smoke config of ``--arch`` and random weights from
 ``--seed``.  Runs on the card unless ``--device cpu`` is given.
 """
@@ -43,12 +46,18 @@ def serve_retrieval(args):
     from repro_torch.core import DynamicIndex, Warren, ingest_documents
     from repro_torch.data.synth import doc_generator
     from repro_torch.serve import RetrievalServer
-    warren = Warren(DynamicIndex())
+    if args.shards > 1:
+        from repro_torch.dist.shard_router import ShardedWarren
+        warren = ShardedWarren(n_shards=args.shards,
+                               async_scatter=args.async_scatter)
+    else:
+        warren = Warren(DynamicIndex())
     t0 = time.time()
     ingest_documents(warren, doc_generator(args.seed, args.docs), batch=256)
     print(f"indexed {args.docs} docs in {time.time() - t0:.2f}s")
-    server = RetrievalServer(warren, k=10, device=args.device)
+    server = None
     try:
+        server = RetrievalServer(warren, k=10, device=args.device)
         queries = ["vibration conductor", "school student",
                    "stock money"] * 8
         t0 = time.time()
@@ -61,7 +70,10 @@ def serve_retrieval(args):
         print(f"breakdown: {server.timing_summary()}")
         print(f"top-3 for {queries[0]!r}: {results[0][:3]}")
     finally:
-        server.close()
+        if server is not None:
+            server.close()
+        if args.shards > 1:
+            warren.close()
 
 
 def main(argv=None):
@@ -74,6 +86,10 @@ def main(argv=None):
                     help="lm mode: the config whose smoke config decodes")
     ap.add_argument("--tokens", type=int, default=8,
                     help="lm mode: new tokens per prompt")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="retrieval mode: serve a ShardedWarren natively")
+    ap.add_argument("--async-scatter", action="store_true",
+                    help="with --shards: pool-based per-group fan-out")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda)")

@@ -398,11 +398,14 @@ class ProfiledLock:
     never touches the metrics plane; a blocking acquire is timed into
     ``lock_wait_ms{lock=<name>}`` and counted in
     ``lock_contended_total{lock=<name>}``.  Wrapping an ``RLock`` keeps
-    reentrancy.
+    reentrancy.  ``order_key`` is the ascending-order key of a lock class
+    with many instances (the shard group id for ``group_write``), kept for
+    the lock-order analysis.
     """
 
-    def __init__(self, name: str, lock=None):
+    def __init__(self, name: str, lock=None, order_key: Optional[int] = None):
         self.name = name
+        self.order_key = order_key
         self._lock = lock if lock is not None else threading.Lock()
         reg = registry()
         self._wait = reg.histogram(

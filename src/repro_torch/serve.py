@@ -10,9 +10,14 @@ RetrievalServer serves ranked retrieval straight from an annotative index
            them to the device and run one dense ``bm25_topk`` there;
   merge    map document indices back to addresses, dropping zero scores.
 
+A ``ShardedWarren`` (an object with ``map_groups``) is served natively:
+one fan-out per shard group gathers its stats and term lists, the BM25
+statistics and the posting cap are taken over the whole collection, each
+group's block is packed into page-locked memory and scored by its own
+device top-k without a host sync between groups, and a host merge keyed by
+``(-score, address)`` gives the global top-k.
+
 The server runs on the card unless the caller passes ``device="cpu"``.
-Sharded warrens (objects with ``map_groups``) are not served by this
-package yet and are refused.
 
 LMServer decodes a batch of prompts greedily through the transformer's
 ``decode_step`` (whose attention is the ``gqa_decode`` kernel), also on the
@@ -22,6 +27,8 @@ card unless asked for the CPU.
 from __future__ import annotations
 
 import dataclasses
+import heapq
+import itertools
 import queue
 import threading
 import time
@@ -34,6 +41,7 @@ from repro_torch import obs
 from repro_torch.core import collection_stats, ranking
 from repro_torch.core.vectorized import bm25_topk
 from repro_torch.device import resolve_device
+from repro_torch.dist.parallel import ScatterTimings
 from repro_torch.models import transformer as T
 
 
@@ -150,103 +158,52 @@ class MicroBatcher:
             done._put(failure)
 
 
-class ScatterTimings:
-    """Thread-safe accumulator for the serving-path time breakdown.
-
-    ``scatter``  posting-list reads + host impact computation
-    ``score``    packing + device scoring + copy back
-    ``merge``    mapping result rows back to addresses
-
-    Every ``add`` also feeds the per-query breakdown into the obs
-    histograms (``serve_{scatter,score,merge}_latency_ms{site=...}``),
-    which carry the percentiles; the struct keeps running sums for its
-    human-readable ``summary``.
-    """
-
-    def __init__(self, site: str = "server"):
-        self._lock = threading.Lock()
-        self.site = site
-        self.scatter_s = 0.0
-        self.score_s = 0.0
-        self.merge_s = 0.0
-        self.queries = 0
-        reg = obs.registry()
-        self._h_scatter = reg.histogram(
-            "serve_scatter_latency_ms",
-            "per-query scatter (fan-out read) time", site=site)
-        self._h_score = reg.histogram(
-            "serve_score_latency_ms",
-            "per-query pack + device/host scoring time", site=site)
-        self._h_merge = reg.histogram(
-            "serve_merge_latency_ms",
-            "per-query global k-way merge time", site=site)
-
-    def reset(self) -> None:
-        with self._lock:
-            self.scatter_s = self.score_s = self.merge_s = 0.0
-            self.queries = 0
-
-    def add(self, scatter: float = 0.0, score: float = 0.0,
-            merge: float = 0.0, queries: int = 1) -> None:
-        with self._lock:
-            self.scatter_s += scatter
-            self.score_s += score
-            self.merge_s += merge
-            self.queries += queries
-        self._h_scatter.observe(1e3 * scatter)
-        self._h_score.observe(1e3 * score)
-        self._h_merge.observe(1e3 * merge)
-
-    def snapshot(self) -> Dict[str, float]:
-        with self._lock:
-            return {"scatter_s": self.scatter_s, "score_s": self.score_s,
-                    "merge_s": self.merge_s, "queries": self.queries}
-
-    def summary(self) -> str:
-        s = self.snapshot()
-        q = max(s["queries"], 1)
-        total = s["scatter_s"] + s["score_s"] + s["merge_s"]
-        return (f"{s['queries']} queries — scatter "
-                f"{1e3 * s['scatter_s'] / q:.2f} score "
-                f"{1e3 * s['score_s'] / q:.2f} merge "
-                f"{1e3 * s['merge_s'] / q:.2f} ms/query "
-                f"(total {1e3 * total / q:.2f})")
-
-
 class RetrievalServer:
     """BM25 top-k over an annotative index with batched device scoring.
 
-    Works over a single ``Warren``.  After commits change the collection,
-    call :meth:`refresh_stats`.  ``timings`` holds the per-batch
-    scatter/score/merge breakdown.  ``device=None`` scores on the card and
-    raises when there is none; ``device="cpu"`` scores on the host with the
-    same arithmetic, so both give the same bits.
+    Works over any object with the Warren read surface — a single
+    ``Warren``, a ``ShardedWarren`` (with demoted cold groups), or a
+    ``TieredWarren``, whose ``annotations`` already k-way merge the hot
+    memtable with every on-disk static run.  After commits, tier freezes,
+    or shard demotions change the collection, call :meth:`refresh_stats`.
+
+    A ``ShardedWarren`` is served natively (scatter once per group, score
+    per group, merge globally) unless ``sharded_native=False``.
+    ``timings`` holds the per-batch scatter/score/merge breakdown.
+    ``device=None`` scores on the card and raises when there is none;
+    ``device="cpu"`` scores on the host with the same arithmetic, so both
+    give the same bits.
     """
 
     def __init__(self, warren, k: int = 10, batcher: BatcherConfig = None,
                  max_terms: int = 8, max_postings: int = 4096,
-                 device=None):
-        if hasattr(warren, "map_groups"):
-            raise NotImplementedError(
-                "sharded serving is not implemented here yet")
+                 sharded_native: bool = True, device=None):
         self.device = resolve_device(device)
         self.warren = warren
         self.k = k
         self.max_terms = max_terms
         self.max_postings = max_postings
+        self._sharded = sharded_native and hasattr(warren, "map_groups")
         self.timings = ScatterTimings(site="server")
         # device shape buckets already scored: the counter that tells
         # shape-bucket churn from steady-state serving
         self._seen_shapes: set = set()
-        with warren:
-            self.stats = collection_stats(warren)
+        if self._sharded:
+            self.stats = None    # the native path re-scatters per batch
+        else:
+            with warren:
+                self.stats = collection_stats(warren)
         self.batcher = MicroBatcher(self._handle, batcher or BatcherConfig())
 
     def refresh_stats(self) -> None:
         """Re-derive collection statistics from a fresh snapshot; queries
         already in flight finish against the stats they started with.
         Reads through a clone so it never collides with the batcher
-        thread's start()/end() bracket on the serving warren."""
+        thread's start()/end() bracket on the serving warren.  The native
+        sharded path scatters fresh stats every batch, so there is
+        nothing to refresh."""
+        if self._sharded:
+            return
         w = self.warren.clone()
         with w:
             self.stats = collection_stats(w)
@@ -261,7 +218,8 @@ class RetrievalServer:
         # coalesce duplicate requests: a batch scores each distinct query
         # once, every waiter gets (a copy of) the shared result row
         uniq = list(dict.fromkeys(queries))
-        rows = self._handle_single(uniq)
+        rows = (self._handle_sharded(uniq) if self._sharded
+                else self._handle_single(uniq))
         if len(uniq) == len(queries):
             return rows
         # timings count served requests, so per-query figures stay
@@ -369,6 +327,189 @@ class RetrievalServer:
                 res = [(int(stats.doc_starts[d]), float(s))
                        for d, s in zip(ids[qi], scores[qi]) if s > 0]
                 out.append(res)
+        t_merge = time.perf_counter() - t0
+        self.timings.add(scatter=t_scatter, score=t_score, merge=t_merge,
+                         queries=qn)
+        return out
+
+    # -- native ShardedWarren path ----------------------------------------- #
+    def _staging(self, shape: Tuple[int, ...], dtype: torch.dtype,
+                 fill) -> torch.Tensor:
+        """A host block to pack into: page-locked when scoring on the card,
+        so its copy there can run without blocking the host.  A fresh one
+        per group and batch: the caching host allocator hands the memory
+        out again only after the copy that reads it has run."""
+        t = torch.empty(shape, dtype=dtype,
+                        pin_memory=self.device.type == "cuda")
+        t.fill_(fill)
+        return t
+
+    def _collect(self, pending: List[Optional[Tuple[torch.Tensor,
+                                                    torch.Tensor]]]
+                 ) -> List[Optional[Tuple[np.ndarray, np.ndarray]]]:
+        """Every group's (scores, ids) on the host, behind ONE sync: the
+        results are stacked on the card and copied to page-locked memory
+        without blocking, then the stream is synchronized once."""
+        live = [p for p in pending if p is not None]
+        if not live:
+            return [None] * len(pending)
+        scores = torch.stack([p[0] for p in live])
+        ids = torch.stack([p[1] for p in live])
+        if self.device.type == "cuda":
+            hs = torch.empty(scores.shape, dtype=scores.dtype,
+                             pin_memory=True)
+            hi = torch.empty(ids.shape, dtype=ids.dtype, pin_memory=True)
+            hs.copy_(scores, non_blocking=True)
+            hi.copy_(ids, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
+            scores, ids = hs, hi
+        sc, di = scores.numpy(), ids.numpy()
+        out: List[Optional[Tuple[np.ndarray, np.ndarray]]] = []
+        j = 0
+        for p in pending:
+            if p is None:
+                out.append(None)
+            else:
+                out.append((sc[j], di[j]))
+                j += 1
+        return out
+
+    def _handle_sharded(self, queries: List[str]
+                        ) -> List[List[Tuple[int, float]]]:
+        qn, l, k = len(queries), self.max_postings, self.k
+        qterms = self._query_terms(queries)
+        # stem every query term once; pack_group indexes these features
+        qfeatures = [[ranking.TF_PREFIX + ranking.porter_stem(term)
+                      for term in terms] for terms in qterms]
+        stems = list(dict.fromkeys(f for row in qfeatures for f in row))
+        # scatter: ONE fan-out per group for the whole micro-batch — every
+        # group returns its stats and its slice of every term list (the
+        # fan-out follows the session's pinned routing table, so the group
+        # count comes from the gather, not from the live warren).  The
+        # closures only read the host index; every torch call stays on
+        # this (the batcher's) thread.
+        t0 = time.perf_counter()
+        with self.warren:
+            gathered = self.warren.map_groups(
+                lambda w: (ranking.collection_stats(w),
+                           [w.annotations(f) for f in stems]))
+        t_scatter = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n_groups = len(gathered)
+        per = [s for s, _ in gathered]
+        lists = [lst for _, lst in gathered]
+        n_docs = sum(s.n_docs for s in per)
+        if n_docs == 0:
+            self.timings.add(scatter=t_scatter, queries=qn)
+            return [[] for _ in queries]
+        # global stats, computed exactly as collection_stats would over the
+        # merged surface (avgdl is order-free; ties merge by address below)
+        avgdl = float(np.concatenate([s.doc_lens for s in per]).mean())
+        # per stem: per-group (doc_idx, impact) with GLOBAL df/avgdl, then
+        # the posting cap applied to the *global* list so the kept postings
+        # are exactly the single-index path's
+        term_group: Dict[str, Optional[List[Tuple[np.ndarray, np.ndarray]]]] \
+            = {}
+        empty = (np.zeros(0, np.int64), np.zeros(0))
+        for si, f in enumerate(stems):
+            df = sum(len(lists[g][si]) for g in range(n_groups))
+            if df == 0:
+                term_group[f] = None
+                continue
+            idf = ranking._bm25_idf(n_docs, df)
+            per_g = []
+            for g in range(n_groups):
+                lst, stats = lists[g][si], per[g]
+                if len(lst) == 0 or stats.n_docs == 0:
+                    per_g.append(empty)
+                    continue
+                per_g.append(ranking._impacts_with_avgdl(lst, stats, idf,
+                                                         avgdl))
+            total = sum(len(di) for di, _ in per_g)
+            if total > l:
+                cat = np.concatenate([imp for _, imp in per_g])
+                keep = np.zeros(total, bool)
+                keep[np.argsort(-cat, kind="stable")[:l]] = True
+                capped, off = [], 0
+                for di, imp in per_g:
+                    m = keep[off:off + len(di)]
+                    off += len(di)
+                    capped.append((di[m], imp[m]))
+                per_g = capped
+            term_group[f] = per_g
+
+        def pack_group(g: int):
+            """This group's (doc_idx, impacts, qmask) host block, or None
+            when the group has no documents or no postings for the batch."""
+            ng = per[g].n_docs
+            if ng == 0:
+                return None
+            longest = max((len(per_g[g][0]) for per_g in term_group.values()
+                           if per_g is not None), default=0)
+            if longest == 0:    # nothing scored here: all-zero rows anyway
+                return None
+            qp, tp, lg = self._pad_sizes(
+                qn, max((len(row) for row in qfeatures), default=1), longest)
+            nb = self._acc_pad(ng)
+            self._note_shapes(qp, tp, lg, nb)
+            blk = (self._staging((qp, tp, lg), torch.int32, nb),
+                   self._staging((qp, tp, lg), torch.float32, 0.0),
+                   self._staging((qp, tp), torch.float32, 0.0))
+            doc_idx, impacts, qmask = (t.numpy() for t in blk)
+            for qi, row in enumerate(qfeatures):
+                for ti, f in enumerate(row):
+                    per_g = term_group[f]
+                    if per_g is None:
+                        continue
+                    qmask[qi, ti] = 1.0
+                    di, imp = per_g[g]
+                    if len(di):
+                        doc_idx[qi, ti, :len(di)] = di
+                        impacts[qi, ti, :len(di)] = imp
+            return blk, nb
+
+        # pipelined scoring: the copies from page-locked memory and the
+        # top-k launch without waiting, so group g's top-k runs on the card
+        # while group g+1's block is packed; _collect syncs once for all
+        dev = self.device
+        with obs.span("device_score"):
+            pending, staged = [], []
+            for g in range(n_groups):
+                with obs.phase_timer("bm25_topk", "gather"):
+                    packed = pack_group(g)
+                if packed is None:
+                    pending.append(None)
+                    continue
+                blk, nb = packed
+                staged.append(blk)   # held until the sync below
+                doc_idx, impacts, qmask = (t.to(dev, non_blocking=True)
+                                           for t in blk)
+                pending.append(bm25_topk(doc_idx, impacts, qmask,
+                                         n_docs=nb, k=k))
+            with obs.phase_timer("bm25_topk", "compute"):
+                group_res = self._collect(pending)
+            del staged
+        t_score = time.perf_counter() - t0
+        # gather: global k-way merge; per-group lists come out of top_k
+        # sorted by (-score, doc index) = (-score, address) within a group,
+        # and the composite key merges on the document's ADDRESS, which is
+        # the single-index tie order no matter how rebalancing has
+        # interleaved group address ranges
+        t0 = time.perf_counter()
+        with obs.span("merge"):
+            out = []
+            for qi in range(qn):
+                runs = []
+                for g, res in enumerate(group_res):
+                    if res is None:
+                        continue
+                    sc, ids = res
+                    runs.append([(-float(s), int(per[g].doc_starts[int(d)]))
+                                 for s, d in zip(sc[qi], ids[qi]) if s > 0])
+                merged = heapq.merge(*runs)   # key: (-score, address)
+                row = [(addr, -neg_s)
+                       for neg_s, addr in itertools.islice(merged, k)]
+                out.append(row)
         t_merge = time.perf_counter() - t0
         self.timings.add(scatter=t_scatter, score=t_score, merge=t_merge,
                          queries=qn)

@@ -474,3 +474,82 @@ def test_recsys_on_card_runs_the_kernel_only(cuda_device, monkeypatch, name,
                 "sasrec": 1}[name] + int(cands)
     assert bag_kernel.launches == before + per_call
     assert chip_smoke.recsys_close(got, want, want64)["ok"]
+
+
+# ------------------------------------------------------------------ #
+# sharded serving
+# ------------------------------------------------------------------ #
+SHARDED_QUERIES = ["school education student", "government law state",
+                   "stock money business", "vibration conductor wind",
+                   "time", "nothingmatches", "wind wind conductor",
+                   "people way day man thing woman life child world"]
+
+
+@pytest.fixture(scope="module")
+def sharded_warren():
+    from repro_torch.core import ingest_documents
+    from repro_torch.data.synth import doc_generator
+    from repro_torch.dist.shard_router import ShardedWarren
+    w = ShardedWarren(n_shards=3, replicas=2, async_scatter=True)
+    ingest_documents(w, doc_generator(7, 150, mean_len=40), batch=16)
+    yield w
+    w.close()
+
+
+@pytest.mark.parametrize("max_postings", [4096, 8])
+def test_sharded_server_on_card_matches_host(cuda_device, sharded_warren,
+                                             max_postings):
+    """The native sharded path on the card and on the host over one
+    ShardedWarren: the same addresses, float32 score bits and order."""
+    from repro_torch.serve import RetrievalServer
+    queries = SHARDED_QUERIES + SHARDED_QUERIES[:3]
+    rows = {}
+    for name, w, dev in (("card", sharded_warren, cuda_device),
+                         ("host", sharded_warren.clone(), "cpu")):
+        server = RetrievalServer(w, k=10, max_postings=max_postings,
+                                 device=dev)
+        try:
+            handles = [server.batcher.submit(q) for q in queries]
+            rows[name] = [h.get(timeout=60) for h in handles]
+        finally:
+            server.close()
+    assert rows["card"] == rows["host"]
+    assert any(rows["card"])
+
+
+def test_sharded_pipeline_syncs_once_per_batch(cuda_device, sharded_warren):
+    """Each group's block is copied from page-locked memory and scored
+    without a host sync in between: a batch over three groups makes one
+    stream sync (the collection of every group's top-k), read as the
+    difference between profiled windows of two batches and of one (the
+    profiler's own syncs cancel), and its results are the host's."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import RetrievalServer
+    syncs = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaMemcpy")
+    server = RetrievalServer(sharded_warren, k=10, device=cuda_device)
+    host = RetrievalServer(sharded_warren.clone(), k=10, device="cpu")
+
+    def window(batches):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(batches):
+                got = server._handle_sharded(SHARDED_QUERIES)
+        names = Counter(e.name for e in prof.events())
+        assert names["cudaLaunchKernel"] > 0
+        return got, Counter({n: names[n] for n in syncs if names[n]})
+
+    try:
+        server._handle_sharded(SHARDED_QUERIES)           # warm-up
+        torch.cuda.synchronize()
+        got, one = window(1)
+        _, two = window(2)
+        want = host._handle_sharded(SHARDED_QUERIES)
+    finally:
+        server.close()
+        host.close()
+    assert got == want
+    assert two - one == Counter({"cudaStreamSynchronize": 1}), (one, two)

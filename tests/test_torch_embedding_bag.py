@@ -224,7 +224,7 @@ def _pallas_body(table, idx, w):
 @pytest.mark.parametrize("case", chip_smoke.BAG_CASES,
                          ids=[c[0] for c in chip_smoke.BAG_CASES])
 def test_chip_smoke_bag_cases_match_jax(case):
-    """Every case of ``chip_smoke.py``'s phase 11 against the reference's
+    """Every case of ``chip_smoke.py``'s phase 13 against the reference's
     padded jnp path: bit for bit in float32, within one bfloat16 ulp. At
     L = 1 einsum returns w·x itself, -0.0 for a zero weight on a negative
     entry, where the body's 0 + w·x is +0.0: there both sides are compared

@@ -117,7 +117,7 @@ def test_launcher_lm_mode_on_the_cpu(capsys):
 
 
 def test_chip_smoke_lm_phases_on_the_cpu():
-    """``chip_smoke.py``'s phases 8 and 9 on the CPU, at a bfloat16 smoke
+    """``chip_smoke.py``'s phases 10 and 11 on the CPU, at a bfloat16 smoke
     config: their checks hold with the plain version (no launches), and
     the fp8-weight decode falls outside the logit tolerance."""
     cpu = torch.device("cpu")
@@ -133,7 +133,7 @@ def test_chip_smoke_lm_phases_on_the_cpu():
 
 @pytest.mark.parametrize("wrong", ["last_quarter", "zeros"])
 def test_chip_smoke_deploy_check_sees_every_position(monkeypatch, wrong):
-    """Phase 10's comparison at deployment lengths passes the plain version
+    """Phase 12's comparison at deployment lengths passes the plain version
     and refuses a kernel that reads only the last quarter of the positions
     (as one that skipped every split but the last would), or returns
     zeros: with K and V from the seed every position carries weight."""
@@ -160,7 +160,7 @@ def test_chip_smoke_deploy_check_sees_every_position(monkeypatch, wrong):
                          ids=["p_hi_plus_lo", "p_single_bf16"])
 def test_chip_smoke_conditioned_check_sees_single_bf16_p(monkeypatch,
                                                          single_bf16):
-    """Phase 9's conditioned check at a bfloat16 smoke size, with the mma
+    """Phase 11's conditioned check at a bfloat16 smoke size, with the mma
     kernel's arithmetic (``emulate_mma``) in place of the decode's
     attention (the reference decode takes the plain version): P split
     into bf16 hi + lo passes it; P rounded once to bf16 fails it, and so

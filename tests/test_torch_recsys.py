@@ -353,7 +353,7 @@ def test_host_subset_serves_the_same_numbers(name):
 
 
 def test_chip_smoke_recsys_phases_on_the_cpu():
-    """``chip_smoke.py``'s phases 11 and 12 on the CPU at the smoke
+    """``chip_smoke.py``'s phases 13 and 14 on the CPU at the smoke
     configs: their checks hold with the plain version (no launches), and
     SASRec's zero score rows are those fault (i) predicts."""
     cpu = torch.device("cpu")
@@ -372,7 +372,7 @@ def test_chip_smoke_recsys_phases_on_the_cpu():
 
 
 def test_recsys_tolerance_refuses_a_wrong_row():
-    """Phase 12's comparison passes the host's own output and refuses one
+    """Phase 14's comparison passes the host's own output and refuses one
     whose single entry moved by 1e-4 of the output's scale."""
     want = torch.linspace(-1, 1, 512)
     want64 = want.double() + 1e-8
@@ -383,7 +383,7 @@ def test_recsys_tolerance_refuses_a_wrong_row():
 
 
 def test_chip_smoke_bag_deploy_cases_on_the_cpu():
-    """Phase 13's inputs at the smoke configs: the kernel's plain version
+    """Phase 15's inputs at the smoke configs: the kernel's plain version
     equals the library call on each, and the bound counts distinct rows."""
     cases = chip_smoke.bag_deploy_cases(torch.device("cpu"), bulk=256,
                                         smoke=True)
