@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py
 
@@ -7,9 +8,9 @@ Phases, one JSON line each; any failure raises and the script exits
 non-zero:
 
 0. device: the card, its power limit, the matmul precision settings, and
-   the four kernels' builds (set-up time; one nvcc for each source,
+   the five kernels' builds (set-up time; one nvcc for each source,
    started together) with their registers and spills (none may spill in
-   gqa_decode, bm25_blockmax or embedding_bag);
+   gqa_decode, bm25_blockmax, embedding_bag or its backward);
 1. the bm25_blockmax kernel against its plain version at the small shapes
    of the kernel tests (sweep, empty lists, one element, the θ tie
    boundary, BS off the warp width, k above the positive docs, T = 0) and
@@ -55,11 +56,13 @@ non-zero:
    plain version, the whole vectorized operator and the memory bound;
 8. sharded: a ShardedWarren of 4 shard groups × 2 replicas (quorum
    commit, a WAL a replica written through ``core/packing.py``, async
-   scatter) over phase 2's 50,000 documents, served natively by
+   scatter) over the stream's first 10,000 documents (phase 2's 50,000
+   until the training slice), served natively by
    ``RetrievalServer`` on the card to phase 2's 512 queries from 8 client
    threads (p50, p95, queries/s, the scatter/score/merge breakdown and the
    idle share of 64 profiled queries); held against the same server on
-   the host bit for bit and against phase 2's single-index rows by
+   the host bit for bit and against a single index's rows over the same
+   10,000 documents by
    (score, text), ties as sets (queries whose terms exceed the posting
    cap by a pair of uncapped servers: the cap's equal impacts keep
    address order, which differs by design); then 64 queries after each
@@ -126,7 +129,44 @@ non-zero:
    device time, its plain version, the bound over distinct rows and the
    bound over every reference (``bound_refs_ms``: the floor where the L2
    cannot hold the table);
-16. the kernels line; the last line is ``{"ok": true, "device": ...}``.
+16. bag_backward_small: the embedding_bag backward kernel against its
+   plain version (on the card and on the host): ids named again within
+   and across bags, wrapped and dropped ids, zero weights, float32 and
+   bfloat16, D not a multiple of 4, B = 0, two vectors a lane, grad_out
+   off 16 bytes, a table off 16 bytes through the autograd Function —
+   per element within n · 2^-23 · Σ|terms| (the atomics' order; plus a
+   bfloat16 ulp for bfloat16), the bound printed;
+17. train_lm, the training slice's path A: the port's pipeline over 16
+   seeded documents of about 8,192 words (ingest, ``dup:``, 4,096-token
+   ``seg:`` windows), ``IndexedCorpusLoader``, then ``Trainer`` on
+   InternLM2-1.8B at full width in bfloat16 (random weights from the
+   seed, remat, attention chunks of 1,024) at train_4k's sequence, 4
+   sequences a step (the global 256 cut to what one card holds), 3
+   steps, no checkpoint (a train state is 23 GB); step ms, tokens/s, peak
+   memory and the model FLOPs' share of the bf16 peak; the cursor
+   advances by batch × steps, and two steps on one repeated batch lower
+   its loss (the second profiled: idle share, device time by kernel);
+18. train_small: the checkpoint path on the card at the smoke config,
+   float32 with TF32 off: ``run_with_restarts`` with a crash injected at
+   step 7 resumes from the newest published checkpoint (step 6's, or an
+   earlier one where the asynchronous write is still in flight) and its
+   cursor, reaches step 10, and agrees with an uninterrupted card run; 3
+   card steps against 3 host steps (the host's float32-vs-float64 spread, or what an AdamW
+   step can move a coordinate);
+19. train_recsys, path B: DLRM-RM2 and two-tower (``loss_chunk`` 4,096)
+   at full width and train_batch 65,536, 3 steps on one repeated batch
+   through ``Trainer`` (the loss falls), embedding_bag's forward and
+   backward launch counts zeroed just before and read just after (1 and
+   3 a step each), step ms, examples/s, peak memory, one more step
+   profiled; then the four models at their smoke configs, 3 card steps
+   against 3 host steps;
+20. bag_backward_deploy: the backward kernel at DLRM's train shape
+   (65,536 × 26 bags of one over [26 M, 64]) and two-tower's history
+   bags ([65,536, 8] over [10^6, 256]), against its plain version,
+   timed in turns with autograd's backward of ``F.embedding_bag``,
+   beside its device time, its plain version and the bound over distinct
+   rows (read and written once);
+21. the kernels line; the last line is ``{"ok": true, "device": ...}``.
 
 It needs a CUDA card and the repository's ``src/`` beside it, and exits
 non-zero without a result otherwise.
@@ -160,6 +200,7 @@ JSON_SCALE = 50.0
 N_SHARDS = 4
 N_REPLICAS = 2
 STEP_QUERIES = 64   # after each sharded step; 128 took the run past 600 s
+SHARDED_DOCS = 10_000     # phase 8's corpus (50,000 until the training slice)
 TIERED_QUERIES = 128
 K_TIES = 64
 MAX_TERMS = 8             # the server's default max_terms
@@ -1585,12 +1626,33 @@ def sharded_step(step, card, host, sharded, single, queries, single_rows,
          vs_single=vs, **fields)
 
 
+def single_index(dev, n_docs: int, queries):
+    """A single ``Warren`` over the stream's first ``n_docs`` documents and
+    its rows for ``queries`` from ``RetrievalServer`` on ``dev``: phase 8's
+    yardstick, built over the same documents as the sharded index."""
+    from repro_torch.core import DynamicIndex, Warren, ingest_documents
+    from repro_torch.data.synth import doc_generator
+    from repro_torch.serve import RetrievalServer
+    single = Warren(DynamicIndex())
+    t0 = time.perf_counter()
+    ingest_documents(single, doc_generator(SEED, n_docs), batch=256)
+    t_ingest = time.perf_counter() - t0
+    server = RetrievalServer(single, k=10, device=dev)
+    try:
+        rows, _ = serve_closed_loop(server, queries, N_CLIENTS)
+    finally:
+        server.close()
+    emit("sharded_single_index", docs=n_docs, ingest_s=t_ingest)
+    return single, rows
+
+
 def phase_sharded(dev, single, queries, single_rows, n_docs=N_DOCS,
                   step_queries=STEP_QUERIES, profile=True) -> dict:
     """A document-partitioned index of 4 shard groups × 2 replicas with
     quorum commit, every replica logging to its own WAL, served natively
     by ``RetrievalServer`` on the card; held against the same server on
-    the host bit for bit and against phase 2's single index by text."""
+    the host bit for bit and against a single index of the same documents
+    by text."""
     import tempfile
 
     from repro_torch import obs
@@ -2835,6 +2897,732 @@ def phase_bag_deploy(dev, bw, flops, bulk: int = BULK) -> dict:
     return rows
 
 
+# --------------------------------------------------------------------- #
+# phase 16: embedding_bag's backward against its plain version
+# --------------------------------------------------------------------- #
+# (name, V, D, B, L, dtype, ids): "dup" names rows again within a bag and
+# across bags; "wrap_bad" mixes ids in [-V, 0) with ids outside [-V, V)
+BAG_BACKWARD_CASES = [
+    ("dup_within_and_across_bags", 20, 64, 40, 6, "float32", "dup"),
+    ("wrapped_and_dropped_ids", 30, 16, 24, 5, "float32", "wrap_bad"),
+    ("zero_weights", 50, 32, 16, 4, "float32", "zero"),
+    ("d10_not_a_multiple_of_4", 40, 10, 33, 3, "float32", "dup"),
+    ("d7_bf16", 40, 7, 20, 4, "bfloat16", "wrap_bad"),
+    ("bf16_d64", 100, 64, 64, 8, "bfloat16", "dup"),
+    ("bf16_d256_bags_of_8", 300, 256, 50, 8, "bfloat16", "wrap_bad"),
+    ("b0", 30, 16, 0, 4, "float32", "dup"),
+    ("d256_bags_of_8", 500, 256, 65, 8, "float32", "dup"),
+    ("bags_of_one_d64", 1000, 64, 777, 1, "float32", "dup"),
+    ("d600_two_vectors_a_lane_and_more", 60, 600, 9, 3, "float32", "dup"),
+    ("grad_out_off_16_bytes", 50, 64, 20, 4, "float32", "dup"),
+    ("table_off_16_bytes_through_the_function", 50, 64, 20, 4, "float32",
+     "dup"),
+]
+
+
+def bag_backward_case(name, v, d, b, l, dtype, ids):
+    """Seeded (grad_out [B, D], indices [B, L] int32, weights [B, L] f32)
+    on the host."""
+    import torch
+    rng = np.random.default_rng(v * 13 + d * 5 + b + l)
+    g = torch.from_numpy(rng.standard_normal((b, d)).astype(
+        np.float32)).to(getattr(torch, dtype))
+    if ids == "dup":
+        idx = rng.integers(0, max(v // 4, 1), size=(b, l))
+        if b:
+            idx[:, -1] = idx[:, 0]                 # again within the bag
+    else:
+        idx = rng.integers(-v, v, size=(b, l))
+        if ids == "wrap_bad":
+            bad = rng.random((b, l)) < 0.25
+            idx = np.where(bad, np.where(rng.random((b, l)) < 0.5,
+                                         v + idx % 5, -v - 1 - idx % 5), idx)
+    w = rng.standard_normal((b, l)).astype(np.float32)
+    w[rng.random((b, l)) < 0.2] = 0.0
+    if ids == "zero":
+        w[:] = 0.0
+    return g, torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(w)
+
+
+def bag_backward_bound(g, idx, w, num_rows):
+    """Per element of the table's gradient, what a float32 sum of its n
+    contributions in another order may differ by: n · 2^-23 · Σ|terms|
+    (and for a bfloat16 gradient, one bfloat16 ulp of the value more: the
+    float32 sums may round to either side of a bfloat16 boundary)."""
+    import torch
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward_ref
+    mag = embedding_bag_backward_ref(g.float().abs(), idx, w.abs(), num_rows)
+    ids = idx.long().reshape(-1)
+    keep = (ids >= -num_rows) & (ids < num_rows) & (w.reshape(-1) != 0)
+    rows = torch.where(ids < 0, ids + num_rows, ids)[keep]
+    n = torch.bincount(rows, minlength=num_rows).to(torch.float32)
+    return n[:, None] * 2.0 ** -23 * mag
+
+
+def bag_backward_close(got, want, bound) -> tuple:
+    """(max |got − want|, the bound there, ok) in float32."""
+    import torch
+    tol = bound
+    if got.dtype == torch.bfloat16:
+        tol = tol + want.float().abs() * 2.0 ** -8
+    err = (got.float() - want.float()).abs()
+    return (float(err.max()) if err.numel() else 0.0,
+            float(tol.max()) if tol.numel() else 0.0,
+            bool((err <= tol).all()))
+
+
+def phase_bag_backward_small(dev) -> float:
+    import torch
+    from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
+                                                   embedding_bag_backward_ref,
+                                                   embedding_bag_padded,
+                                                   kernel)
+    cuda = torch.device(dev).type == "cuda"
+    rows, worst = [], 0.0
+    for case in BAG_BACKWARD_CASES:
+        name, v, d, b, l, dtype = case[:6]
+        g, idx, w = bag_backward_case(*case)
+        dt = getattr(torch, dtype)
+        host = embedding_bag_backward_ref(g, idx, w, v).to(dt)
+        i, ww = idx.to(dev), w.to(dev)
+        gd = off_16(g, dev) if name == "grad_out_off_16_bytes" else g.to(dev)
+        bound = bag_backward_bound(g, idx, w, v).to(dev)
+        before = kernel.backward_launches
+        if name == "table_off_16_bytes_through_the_function":
+            table = off_16(torch.zeros((v, d), dtype=dt), dev)
+            table.requires_grad_(True)
+            (embedding_bag_padded(table, i, ww) * gd).sum().backward()
+            got = table.grad
+        else:
+            got = embedding_bag_backward(gd, i, ww, v)
+        launched = kernel.backward_launches - before
+        check(launched == int(cuda and b > 0),
+              f"{name}: {launched} backward launches")
+        want = embedding_bag_backward_ref(gd, i, ww, v).to(dt)
+        err, tol, ok = bag_backward_close(got, want, bound)
+        err_h, tol_h, ok_h = bag_backward_close(got.cpu(), host, bound.cpu())
+        check(ok and ok_h, f"embedding_bag backward {name}: |Δ| {err} / "
+                           f"{err_h} beyond the bound {tol} / {tol_h}")
+        check(got.dtype == dt and tuple(got.shape) == (v, d),
+              f"{name}: gradient {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        worst = max(worst, err, err_h)
+        rows.append({"case": name, "max_abs_err": max(err, err_h),
+                     "bound": max(tol, tol_h)})
+    _sync(dev)
+    emit("bag_backward_small", cases=rows, max_abs_err=worst,
+         tolerance="per element |Δ| ≤ n · 2^-23 · Σ|terms| over the row's "
+                   "n contributions (atomics add them in another order), "
+                   "plus one bfloat16 ulp of the value for a bfloat16 "
+                   "gradient; against the plain version on the card and on "
+                   "the host")
+    return worst
+
+
+# --------------------------------------------------------------------- #
+# phase 17: the index-backed LM trainer at InternLM2-1.8B width
+# --------------------------------------------------------------------- #
+LM_TRAIN_ARCH = "internlm2-1.8b"
+LM_TRAIN_BATCH = 4           # train_4k's global 256 cut to what one card holds
+LM_TRAIN_STEPS = 3
+LM_TRAIN_CHUNK = 1024        # attn_chunk_q = attn_chunk_kv
+LM_TRAIN_DOCS = 16
+LM_TRAIN_DOC_LEN = 8192      # mean words a document: 4,096-token windows
+BF16_PEAK = 989e12           # H100 SXM dense bf16 (data sheet)
+
+
+def lm_train_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of one training step (forward and backward, no
+    recompute): 6 · params · tokens, plus causal attention's
+    6 · layers · heads · head_dim · seq / 2 · 2 a token."""
+    return 6.0 * cfg.param_count() * tokens + \
+        6.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens
+
+
+def timed_step_fn(step_fn, dev, stamps: list):
+    """``step_fn`` that synchronises and stamps the host clock after each
+    step (the step time; the trainer itself reads nothing back)."""
+    def fn(model, opt, batch):
+        out = step_fn(model, opt, batch)
+        _sync(dev)
+        stamps.append(time.perf_counter())
+        return out
+    return fn
+
+
+def phase_train_lm(dev, arch: str = LM_TRAIN_ARCH, smoke: bool = False,
+                   batch: int = LM_TRAIN_BATCH, seq: int = None,
+                   steps: int = LM_TRAIN_STEPS, n_docs: int = LM_TRAIN_DOCS,
+                   doc_len: int = LM_TRAIN_DOC_LEN,
+                   chunk: int = LM_TRAIN_CHUNK) -> dict:
+    """The port's pipeline over seeded long documents, then
+    ``IndexedCorpusLoader``, then ``Trainer`` on the model at full width in
+    bfloat16 with remat and blocked attention, ``steps`` steps; then two
+    steps on one repeated batch, whose loss must fall."""
+    import torch
+    from repro_torch.configs.lm_family import SHAPES, get_config, loss_fn
+    from repro_torch.core import DynamicIndex, Warren
+    from repro_torch.data.pipeline import (IndexedCorpusLoader, ingest,
+                                           mark_duplicates, segment)
+    from repro_torch.data.synth import doc_generator
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cuda = torch.device(dev).type == "cuda"
+    seq = seq or SHAPES["train_4k"]["seq"]
+    cfg = dataclasses.replace(get_config(arch, smoke=smoke), remat=True,
+                              attn_chunk_q=chunk, attn_chunk_kv=chunk)
+    t0 = time.perf_counter()
+    warren = Warren(DynamicIndex())
+    n = ingest(warren, doc_generator(SEED, n_docs, mean_len=doc_len))
+    dups = mark_duplicates(warren)
+    segs = segment(warren, window=seq, stride=seq // 2)
+    loader = IndexedCorpusLoader(warren, vocab=cfg.vocab, batch=batch,
+                                 seq_len=seq, seed=SEED)
+    pipeline_s = time.perf_counter() - t0
+    check(segs >= batch * (steps + 1) + 8,
+          f"{segs} segments do not last {steps + 1} steps without a wrap")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = init_params(cfg, gen, dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    tc = TrainerConfig(total_steps=steps, ckpt_dir=None, log_every=1,
+                       ckpt_every=steps + 1,
+                       opt=AdamWConfig(lr=1e-3, warmup_steps=0,
+                                       total_steps=100))
+    trainer = Trainer(loss_fn, model, tc, loader,
+                      data_state_fn=loader.state,
+                      data_restore_fn=loader.restore)
+    stamps = []
+    trainer.step_fn = timed_step_fn(trainer.step_fn, dev, stamps)
+    t0 = time.perf_counter()
+    out = trainer.train()
+    step_ms = 1e3 * np.diff([t0] + stamps)
+    losses = [m["loss"] for m in out["metrics"]]
+    check(out["step"] == steps and all(np.isfinite(losses)),
+          f"LM training: {out}")
+    consumed = trainer._consumed_data_state
+    check(consumed == {"cursor": batch * steps, "epoch": 0},
+          f"the data cursor is {consumed}, expected {batch * steps}")
+    # two steps on one repeated batch (from a loader of its own: the
+    # trainer's prefetch thread still holds the first): its loss falls
+    rep = {k: torch.as_tensor(v, device=dev) for k, v in next(
+        IndexedCorpusLoader(warren, vocab=cfg.vocab, batch=batch,
+                            seq_len=seq, seed=SEED + 1)).items()
+           if k in ("tokens", "labels")}
+    opt, m1 = trainer.step_fn(model, trainer.opt_state, rep)
+    second = []
+    # the second step under the profiler on the card: its idle share and
+    # its device time by kernel
+    profiled = (device_busy(lambda: second.append(
+        trainer.step_fn(model, opt, rep))) if cuda else
+        second.append(trainer.step_fn(model, opt, rep)))
+    m2 = second[0][1]
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    check(l2 < l1, f"the loss on a repeated batch did not fall: {l1} → {l2}")
+    steady = float(np.median(step_ms[1:])) if steps > 1 else float(
+        step_ms[0])
+    tokens = batch * seq
+    row = {"card": nvidia_smi() if cuda else "cpu", "arch": cfg.name,
+           "params": sum(p.numel() for p in model.parameters()),
+           "dtype": cfg.dtype, "remat": cfg.remat, "chunk": chunk,
+           "batch": batch, "seq": seq, "docs": n, "dups": dups,
+           "segments": segs, "pipeline_s": pipeline_s, "init_s": init_s,
+           "steps": steps, "step_ms": step_ms.tolist(),
+           "steady_step_ms": steady, "tokens_per_s": 1e3 * tokens / steady,
+           "losses": losses, "repeated_batch_losses": [l1, l2],
+           "profiled_step": profiled,
+           "data_state": consumed,
+           "model_flops_per_step": lm_train_flops(cfg, tokens, seq)}
+    row["model_flops_share_of_bf16_peak"] = (
+        row["model_flops_per_step"] / (steady / 1e3) / BF16_PEAK)
+    if cuda:
+        row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit("train_lm", **row)
+    del trainer, model, opt, rep, second
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return row
+
+
+# --------------------------------------------------------------------- #
+# phase 18: the checkpoint path on the card, at the smoke config
+# --------------------------------------------------------------------- #
+TRAIN_SMALL_STEPS = 10
+TRAIN_SMALL_CRASH = 7
+TRAIN_SMALL_BATCH = 2
+TRAIN_RATIO = 8.0
+FLIP_STEP = 2.5      # the most one AdamW step moves a coordinate, in lr
+
+
+def small_lm_trainer(dev, ckpt_dir, steps=TRAIN_SMALL_STEPS, lr=1e-3,
+                     restored: list = None):
+    """make_trainer for the index-backed smoke LM (30 documents, 32-token
+    windows, batches of TRAIN_SMALL_BATCH) on ``dev``, the weights drawn on
+    the host; each data state a trainer restores is appended to
+    ``restored``."""
+    import torch
+    from repro_torch.configs.lm_family import get_config, loss_fn
+    from repro_torch.core import DynamicIndex, Warren
+    from repro_torch.data.pipeline import (IndexedCorpusLoader, ingest,
+                                           mark_duplicates, segment)
+    from repro_torch.data.synth import doc_generator
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = get_config(LM_TRAIN_ARCH, smoke=True)
+    warren = Warren(DynamicIndex())
+    ingest(warren, doc_generator(SEED, 30, mean_len=60))
+    mark_duplicates(warren)
+    segment(warren, window=32, stride=16)
+
+    def make():
+        loader = IndexedCorpusLoader(warren, vocab=cfg.vocab,
+                                     batch=TRAIN_SMALL_BATCH, seq_len=32)
+
+        def restore(state):
+            if restored is not None:
+                restored.append(dict(state))
+            loader.restore(state)
+        tc = TrainerConfig(total_steps=steps, ckpt_every=3,
+                           ckpt_dir=ckpt_dir, log_every=1,
+                           opt=AdamWConfig(lr=lr, warmup_steps=2,
+                                           total_steps=steps))
+        model = init_params(cfg, torch.Generator().manual_seed(SEED),
+                            "cpu").to(dev)
+        return Trainer(loss_fn, model, tc, loader,
+                       data_state_fn=loader.state, data_restore_fn=restore)
+    return make
+
+
+def params_close(got: dict, ref32: dict, ref64: dict, lr: float,
+                 steps: int) -> dict:
+    """Parameters after ``steps`` AdamW steps against a float32 run and its
+    float64 twin: the mean |Δ| of each leaf within TRAIN_RATIO × the
+    float32 run's mean distance from float64 plus one ulp, and each
+    element within TRAIN_RATIO × that distance's largest entry or what two
+    runs that move a coordinate in opposite directions can differ by
+    (2 · FLIP_STEP · lr a step)."""
+    worst, flip = {}, 2 * FLIP_STEP * lr * steps
+    for n, a in ref32.items():
+        a = a.double()
+        d = (got[n].double().cpu() - a).abs()
+        spread = (a - ref64[n].double()).abs()
+        ulp = float(np.spacing(np.float32(float(a.abs().max()))))
+        ok = (float(d.mean()) <= TRAIN_RATIO * float(spread.mean()) + ulp
+              and float(d.max()) <= max(TRAIN_RATIO * float(spread.max())
+                                        + ulp, flip))
+        check(ok, f"parameter {n}: mean |Δ| {float(d.mean())}, max "
+                  f"{float(d.max())}; spread mean {float(spread.mean())}, "
+                  f"max {float(spread.max())}")
+        worst[n] = float(d.max())
+    return {"max_abs_err": max(worst.values()), "flip_bound": flip}
+
+
+def host_runs(make):
+    """The same training on the CPU in float32 and with the model widened to
+    float64 (the optimizer stays float32): {name: tensor} each."""
+    out = []
+    for wide in (False, True):
+        tr = make("cpu")
+        if wide:
+            tr.model.double()
+        tr.train()
+        out.append({n: p.detach().clone()
+                    for n, p in tr.model.named_parameters()})
+    return out
+
+
+def phase_train_small(dev) -> dict:
+    """``run_with_restarts`` with an injected crash on the card: the resumed
+    run restores the cursor of the step it resumes at and reaches
+    total_steps, its parameters equal an uninterrupted card run's bit for
+    bit (the same kernels on the same inputs in the same order: the LM
+    path has no atomics), and 3 card steps agree with 3 CPU steps of the
+    port, float32 with TF32 off."""
+    import tempfile
+
+    import torch
+    from repro_torch.train.trainer import run_with_restarts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr = 1e-3
+    restored = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        whole = run_with_restarts(small_lm_trainer(
+            dev, os.path.join(tmp, "a")))
+        crashed = run_with_restarts(small_lm_trainer(
+            dev, os.path.join(tmp, "b"), restored=restored),
+            fail_at=TRAIN_SMALL_CRASH)
+        saved = sorted(os.listdir(os.path.join(tmp, "b")))
+    check(whole.step == crashed.step == TRAIN_SMALL_STEPS,
+          f"steps {whole.step} and {crashed.step}")
+    # checkpoints are written asynchronously: the restart finds step 6's,
+    # or (not yet published) an earlier one, and restores its cursor
+    resumed_at = crashed.metrics_log[0]["step"] - 1
+    check(resumed_at in (0, 3, 6), f"the restart resumed at {resumed_at}")
+    cursor = restored[-1] if restored else {"cursor": 0, "epoch": 0}
+    check(len(restored) == int(resumed_at > 0) and cursor == {
+        "cursor": TRAIN_SMALL_BATCH * resumed_at, "epoch": 0},
+        f"resumed at step {resumed_at}, the cursors restored: {restored}")
+    diff, same = 0.0, True
+    for (n, a), (_, b) in zip(whole.model.named_parameters(),
+                              crashed.model.named_parameters()):
+        a, b = a.detach(), b.detach()
+        diff = max(diff, float((a - b).abs().max()))
+        same = same and torch.equal(a, b)
+    check(same, f"the resumed run is {diff} from the whole run, not bit "
+                f"for bit")
+    # 3 card steps against 3 host steps, and the host's float64 twin
+    steps = 3
+
+    def make(d):
+        return small_lm_trainer(d, None, steps=steps, lr=lr)()
+    card = make(dev)
+    card.train()
+    got = {n: p.detach() for n, p in card.model.named_parameters()}
+    ref32, ref64 = host_runs(make)
+    cmp = params_close(got, ref32, ref64, lr, steps)
+    row = {"steps": TRAIN_SMALL_STEPS, "crash_at": TRAIN_SMALL_CRASH,
+           "resumed_at": resumed_at, "checkpoints": saved,
+           "restored_cursor": cursor, "resumed_vs_whole_max_abs": diff,
+           "resumed_bit_for_bit": same,
+           "card_vs_host_3_steps": cmp,
+           "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                    "cudnn": torch.backends.cudnn.allow_tf32}}
+    emit("train_small", **row)
+    return row
+
+
+# --------------------------------------------------------------------- #
+# phase 19: recsys training at DLRM-RM2 and two-tower width
+# --------------------------------------------------------------------- #
+RECSYS_TRAIN_STEPS = 3
+TWOTOWER_LOSS_CHUNK = 4096
+# embedding_bag launches (forward, backward) a training step
+TRAIN_LAUNCHES = {"dlrm-rm2": 1, "xdeepfm": 2, "two-tower-retrieval": 3,
+                  "sasrec": 3}
+
+
+def recsys_trainer(name, cfg, model, batch, steps, lr=1e-3):
+    """A Trainer over ``steps`` copies of one batch (the loss on a repeated
+    batch must fall)."""
+    from repro_torch.configs.recsys_family import loss_fn
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tc = TrainerConfig(total_steps=steps, ckpt_dir=None, log_every=1,
+                       ckpt_every=steps + 1,
+                       opt=AdamWConfig(lr=lr, warmup_steps=0,
+                                       total_steps=100))
+    return Trainer(lambda m, b: loss_fn(name, m, b), model, tc,
+                   iter([batch] * steps))
+
+
+def step_lookups(name, model, batch) -> list:
+    """One training step's lookups of ``name``: [(table, ids int32,
+    weights f32, grad_out)] for each call of embedding_bag_padded in its
+    loss, grad_out the gradient autograd hands the lookup's output (the
+    tables' gradients are not taken)."""
+    import torch
+    from repro_torch.configs.recsys_family import loss_fn
+    from repro_torch.kernels.embedding_bag import ops
+    seen, inner = [], ops.embedding_bag_padded
+
+    def record(table, indices, weights):
+        out = inner(table, indices, weights)
+        seen.append((table.detach(), indices.to(torch.int32).contiguous(),
+                     weights.to(torch.float32).contiguous(), out))
+        return out
+    ops.embedding_bag_padded = record
+    try:
+        loss = loss_fn(name, model, batch)
+    finally:
+        ops.embedding_bag_padded = inner
+    grads = torch.autograd.grad(loss, [s[3] for s in seen])
+    return [(t, i, w, g) for (t, i, w, _), g in zip(seen, grads)]
+
+
+def check_lookups(name, model, batch) -> list:
+    """Each of one step's lookups (:func:`step_lookups`) through the
+    forward kernel, bit for bit against its plain version, and its
+    gradient through the backward kernel against its plain version within
+    :func:`bag_backward_bound`."""
+    import torch
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag, embedding_bag_backward, embedding_bag_backward_ref,
+        embedding_bag_padded_ref)
+    rows = []
+    for k, (t, i, w, g) in enumerate(step_lookups(name, model, batch)):
+        v = t.shape[0]
+        fwd = same_bits(embedding_bag(t, i, w),
+                        embedding_bag_padded_ref(t, i, w))
+        check(fwd, f"{name} lookup {k}: the forward kernel differs from "
+                   f"its plain version")
+        got = embedding_bag_backward(g, i, w, v)
+        want = embedding_bag_backward_ref(g, i, w, v).to(got.dtype)
+        err, tol, ok = bag_backward_close(got, want,
+                                          bag_backward_bound(g, i, w, v))
+        check(ok, f"{name} lookup {k}: the backward kernel is {err} from "
+                  f"its plain version, beyond {tol}")
+        rows.append({"table": list(t.shape), "dtype": str(t.dtype),
+                     "shape": list(i.shape), "forward_bit_for_bit": fwd,
+                     "backward_max_abs_err": err, "backward_bound": tol})
+        del got, want
+        if g.is_cuda:
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_recsys(dev, smoke: bool = False, batch: int = None,
+                       steps: int = RECSYS_TRAIN_STEPS) -> dict:
+    """DLRM-RM2 and two-tower at full width (``smoke``: their smoke
+    configs) at train_batch, a few steps on one repeated batch through
+    ``Trainer``, with every lookup's forward and backward kernel counted;
+    then all four models at their smoke configs, 3 card steps against 3
+    host steps."""
+    import torch
+    from repro_torch.configs.recsys_family import (BATCHES, get_config,
+                                                   smoke_batch, train_batch)
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.models.recsys import init_params
+    cuda = torch.device(dev).type == "cuda"
+    batch = batch or BATCHES["train_batch"]
+    out = {}
+    for name in ("dlrm-rm2", "two-tower-retrieval"):
+        cfg = get_config(name, smoke=smoke)
+        if name == "two-tower-retrieval":
+            cfg = dataclasses.replace(cfg, loss_chunk=min(
+                TWOTOWER_LOSS_CHUNK, batch))
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        t0 = time.perf_counter()
+        model = init_params(cfg, gen, dev)
+        _sync(dev)
+        init_s = time.perf_counter() - t0
+        b = train_batch(name, cfg, batch, seed=SEED)
+        trainer = recsys_trainer(name, cfg, model, b, steps)
+        stamps = []
+        trainer.step_fn = timed_step_fn(trainer.step_fn, dev, stamps)
+        _sync(dev)
+        bag_kernel.launches = bag_kernel.backward_launches = 0   # path
+        t0 = time.perf_counter()
+        res = trainer.train()
+        _sync(dev)
+        fwd, bwd = bag_kernel.launches, bag_kernel.backward_launches  # ends
+        per = TRAIN_LAUNCHES[name]
+        check(fwd == bwd == (per * steps if cuda else 0),
+              f"{name}: {fwd} forward and {bwd} backward launches in "
+              f"{steps} steps, expected {per * steps} each")
+        losses = [m["loss"] for m in res["metrics"]]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"{name}: the loss on a repeated batch did not fall: "
+              f"{losses}")
+        step_ms = 1e3 * np.diff([t0] + stamps)
+        steady = float(np.median(step_ms[1:]))
+        row = {"card": nvidia_smi() if cuda else "cpu", "arch": cfg.name,
+               "batch": batch, "steps": steps, "init_s": init_s,
+               "table_gb": sum(p.numel() * p.element_size()
+                               for n, p in model.named_parameters()
+                               if n.split(".")[0] in RECSYS_VOCAB) / 1e9,
+               "step_ms": step_ms.tolist(), "steady_step_ms": steady,
+               "examples_per_s": 1e3 * batch / steady, "losses": losses,
+               "launches": fwd, "backward_launches": bwd,
+               "launches_per_step": fwd / steps,
+               "backward_launches_per_step": bwd / steps}
+        if name == "two-tower-retrieval":
+            row["loss_chunk"] = cfg.loss_chunk
+        if cuda:
+            row["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            # one more step on the batch under the profiler
+            row["profiled_step"] = device_busy(lambda: trainer.step_fn(
+                model, trainer.opt_state, b))
+            if not smoke and name == "two-tower-retrieval":
+                check(row["peak_mem_gb"] < 60,
+                      f"two-tower peak memory {row['peak_mem_gb']} GB")
+        # each lookup of one more step at its own shapes, through both
+        # kernels against their plain versions (the optimizer state freed
+        # first: DLRM's gradients are [26 M, 64] each)
+        del trainer
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        row["lookups"] = check_lookups(name, model, b)
+        check(len(row["lookups"]) == TRAIN_LAUNCHES[name],
+              f"{name}: {len(row['lookups'])} lookups a step")
+        out[name] = row
+        emit("train_recsys", **row)
+        del model
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    # all four at their smoke configs: 3 card steps against 3 host steps
+    out["smoke_card_vs_host"] = {}
+    for name in RECSYS_ARCHS:
+        cfg = get_config(name, smoke=True)
+        b = smoke_batch(name, "train", seed=SEED)
+
+        def make(d, name=name, cfg=cfg, b=b):
+            m = init_params(cfg, torch.Generator().manual_seed(SEED),
+                            "cpu").to(d)
+            return recsys_trainer(name, cfg, m, b, 3)
+        card = make(dev)
+        bag_kernel.launches = bag_kernel.backward_launches = 0
+        card.train()
+        _sync(dev)
+        launches = (bag_kernel.launches, bag_kernel.backward_launches)
+        per = TRAIN_LAUNCHES[name] * 3 if cuda else 0
+        check(launches == (per, per), f"{name} smoke: launches {launches}")
+        got = {n: p.detach() for n, p in card.model.named_parameters()}
+        ref32, ref64 = host_runs(make)
+        cmp = params_close(got, ref32, ref64, 1e-3, 3)
+        out["smoke_card_vs_host"][name] = {**cmp, "launches": launches}
+    emit("train_recsys_smoke", **out["smoke_card_vs_host"])
+    return out
+
+
+# --------------------------------------------------------------------- #
+# phase 20: embedding_bag's backward at DLRM's and two-tower's train width
+# --------------------------------------------------------------------- #
+def bag_backward_deploy_cases(dev, batch: int = None, smoke: bool = False):
+    """{case: (grad_out [B, D], ids [B, L] int32, weights [B, L] f32,
+    num_rows, uniform ids or None)} at train_batch: DLRM's field lookup as
+    65,536 × 26 bags of one over the 26 tables viewed as [26 M, 64]
+    (Zipf(1.2) ids, field f's offset by f·V), and two-tower's history bags
+    [65,536, 8] over the 1 M × 256 item table (Zipf(1.3), and the same
+    bags with uniform ids: what the skew costs); grad_out drawn on ``dev``
+    from the seed."""
+    import torch
+    from repro_torch.configs.recsys_family import (BATCHES, HIST_LEN,
+                                                   get_config)
+    from repro_torch.data import synth
+    batch = batch or BATCHES["train_batch"]
+    dl = get_config("dlrm-rm2", smoke=smoke)
+    tt = get_config("two-tower-retrieval", smoke=smoke)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    f, v = dl.n_sparse, dl.vocab_per_table
+    sparse = synth.dlrm_batch(SEED, batch, dl.n_dense, f, v)["sparse"]
+    flat = torch.from_numpy((sparse + np.arange(f) * v).astype(np.int32)
+                            .reshape(-1, 1)).to(dev)
+    hist = synth.twotower_batch(SEED, batch, tt.n_users, tt.n_items,
+                                HIST_LEN)
+    uniform = np.random.default_rng(SEED + 5).integers(
+        0, tt.n_items, size=hist["hist_ids"].shape).astype(np.int32)
+    return {
+        "dlrm": (torch.randn((flat.shape[0], dl.embed_dim), generator=gen,
+                             device=dev), flat,
+                 torch.ones(flat.shape, device=dev), f * v, None),
+        "two_tower_hist": (
+            torch.randn((batch, tt.embed_dim), generator=gen, device=dev),
+            torch.from_numpy(hist["hist_ids"]).to(dev),
+            torch.from_numpy(hist["hist_w"]).to(dev), tt.n_items,
+            torch.from_numpy(uniform).to(dev)),
+    }
+
+
+def bag_backward_bytes(g, ids, w):
+    """(bytes, distinct rows): grad_out, ids and weights read once, each
+    distinct row named with a non-zero weight read and written once in
+    float32."""
+    import torch
+    named = ids.reshape(-1)[w.reshape(-1) != 0]
+    rows = int(torch.unique(named).numel())
+    return (g.numel() * g.element_size() + 8 * ids.numel()
+            + 2 * rows * g.shape[1] * 4, rows)
+
+
+def phase_bag_backward_deploy(dev, bw, flops, batch: int = None,
+                              smoke: bool = False) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
+                                                   embedding_bag_backward_ref)
+    cases = bag_backward_deploy_cases(dev, batch, smoke)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rows = {}
+
+    def held(case, g, ids, w, v):
+        got = embedding_bag_backward(g, ids, w, v)
+        want = embedding_bag_backward_ref(g, ids, w, v)
+        bound = bag_backward_bound(g, ids, w, v)
+        err, tol, ok = bag_backward_close(got, want, bound)
+        check(ok, f"bag_backward_deploy {case}: |Δ| {err} beyond {tol}")
+        return err, tol
+
+    def bound_of(g, ids, w):
+        nbytes, distinct = bag_backward_bytes(g, ids, w)
+        by_bytes = 1e3 * nbytes / bw
+        by_ops = 1e3 * 2 * ids.numel() * g.shape[1] / flops
+        return (max(by_bytes, by_ops),
+                "bytes" if by_bytes >= by_ops else "operations", nbytes,
+                distinct)
+
+    def device_ms_of(fn):
+        # each call's [V, D] gradient is dropped at once (the profiled
+        # window runs TIMED_LAUNCHES calls)
+        return kernel_device_ms(lambda: (fn(), None)[1],
+                                "embedding_bag_backward")
+
+    for case, (g, ids, w, v, uniform) in cases.items():
+        err, tol = held(case, g, ids, w, v)
+        # the library: autograd's backward of F.embedding_bag (dense)
+        table = torch.zeros((v, g.shape[1]), device=dev, requires_grad=True)
+        out = F.embedding_bag(ids.long(), table, mode="sum",
+                              per_sample_weights=w)
+
+        def library():
+            return torch.autograd.grad(out, table, g, retain_graph=True)[0]
+        lib_err = float((library() - embedding_bag_backward(
+            g, ids, w, v)).abs().max())
+        calls = {"kernel": lambda: embedding_bag_backward(g, ids, w, v),
+                 "library": library}
+        if uniform is not None:
+            calls["kernel_uniform_ids"] = lambda: embedding_bag_backward(
+                g, uniform, w, v)
+        ms, turns = time_in_turns(calls, flush=flush.zero_)
+        device_ms = device_ms_of(calls["kernel"])
+        plain_ms = time_cuda(lambda: embedding_bag_backward_ref(g, ids, w, v),
+                             flush=flush.zero_)
+        bound_ms, bound_by, nbytes, distinct = bound_of(g, ids, w)
+        rows[case] = dict(
+            card=nvidia_smi(), table=[v, g.shape[1]],
+            shape=list(ids.shape), distinct_rows=distinct,
+            max_abs_err=err, tolerance=tol, ms=ms["kernel"],
+            kernel_ms=ms["kernel"], kernel_device_ms=device_ms,
+            library_ms=ms["library"], turns_ms=turns,
+            kernel_over_library=ms["kernel"] / ms["library"],
+            library_call="torch.autograd.grad of F.embedding_bag(mode='sum', "
+                         "per_sample_weights) (dense)",
+            library_max_abs_diff=lib_err, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            bytes=nbytes, share_of_bound=bound_ms / ms["kernel"],
+            device_share_of_bound=bound_ms / device_ms,
+            zero_fill_ms=1e3 * v * g.shape[1] * 4 / bw)
+        if uniform is not None:
+            # the same bags with uniform ids, timed in the same turns
+            u_err, u_tol = held(case + "_uniform_ids", g, uniform, w, v)
+            u_bound, u_by, u_bytes, u_distinct = bound_of(g, uniform, w)
+            rows[case]["uniform_ids"] = dict(
+                distinct_rows=u_distinct, max_abs_err=u_err, tolerance=u_tol,
+                kernel_ms=ms["kernel_uniform_ids"],
+                kernel_device_ms=device_ms_of(calls["kernel_uniform_ids"]),
+                bound_ms=u_bound, bound_by=u_by, bytes=u_bytes,
+                zipf_over_uniform=ms["kernel"] / ms["kernel_uniform_ids"])
+        emit("bag_backward_deploy", case=case, **rows[case])
+        del table, out
+    del cases, flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2847,6 +3635,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, src)
     from repro_torch.kernels import build
+    t_start = time.perf_counter()
 
     # float32 products in full float32; bfloat16 products reduce in
     # float32 (no reduced-precision split-K), for the phase 11 comparison
@@ -2859,7 +3648,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     kernels = ["bm25_blockmax", "interval_join", "gqa_decode",
-               "embedding_bag"]
+               "embedding_bag", "embedding_bag_backward"]
     built = build.build(kernels, verbose=True)
     for k in kernels:
         build.load(k)
@@ -2874,7 +3663,7 @@ def main() -> int:
         check(len(lines) >= 26 and all(" 0 bytes spill stores" in line
                                        for line in lines.values()),
               f"a gqa_decode instantiation spills: {lines}")
-    for k in ("bm25_blockmax", "embedding_bag"):
+    for k in ("bm25_blockmax", "embedding_bag", "embedding_bag_backward"):
         if k in built:
             lines = ptxas_summary(built[k]["log"])
             check(all(" 0 bytes spill stores" in line
@@ -2889,15 +3678,23 @@ def main() -> int:
     join_launches = phase_structured(dev, warren)
     phase_json(dev)
     joins = phase_deploy_join(dev, bw, flops)
-    phase_sharded(dev, warren, queries, served)
-    phase_tiered(dev)
     del warren, served
+    single, single_rows = single_index(dev, SHARDED_DOCS, queries)
+    phase_sharded(dev, single, queries, single_rows, n_docs=SHARDED_DOCS)
+    del single, single_rows
+    phase_tiered(dev)
     decode_err = phase_decode_small(dev)
     lm = phase_lm_serve(dev)
     deploy = phase_decode_deploy(dev, bw, flops)
     bag_err = phase_bag_small(dev)
     recsys = phase_recsys_serve(dev)
     bags = phase_bag_deploy(dev, bw, flops)
+    back_err = phase_bag_backward_small(dev)
+    phase_train_lm(dev)
+    phase_train_small(dev)
+    rec_train = phase_train_recsys(dev)
+    backs = phase_bag_backward_deploy(dev, bw, flops)
+    emit("done", seconds=time.perf_counter() - t_start)
 
     r = rows[10]
     j1 = joins["J1"]
@@ -2983,6 +3780,38 @@ def main() -> int:
             "shape", "table", "kernel_ms", "plain_ms", "library_ms",
             "kernel_over_library", "kernel_device_ms", "bound_ms",
             "bound_by", "bound_refs_ms")} for case in ("zipf", "dlrm")},
+        "training_launches": sum(rec_train[a]["launches"] for a in (
+            "dlrm-rm2", "two-tower-retrieval")),
+    }, {
+        "name": "embedding_bag_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/embedding_bag_backward.cu",
+        "replaces": "src/repro/kernels/embedding_bag/kernel.py:38",
+        "note": "the gradient of the forward kernel's function; the JAX "
+                "package has no backward kernel (jax.grad scatters through "
+                "jnp.take)",
+        "design": "a grid-stride walk over the B·L items, lanes in groups "
+                  "that hold a row's 16-byte vectors, one item a group; "
+                  "float32 atomicAdd into the zeroed [V, D] gradient",
+        "launches": sum(rec_train[a]["backward_launches"] for a in (
+            "dlrm-rm2", "two-tower-retrieval")),
+        "max_abs_err": max(back_err, *(r["max_abs_err"]
+                                       for r in backs.values()),
+                           backs["two_tower_hist"]["uniform_ids"][
+                               "max_abs_err"],
+                           *(k["backward_max_abs_err"] for a in (
+                               "dlrm-rm2", "two-tower-retrieval")
+                             for k in rec_train[a]["lookups"])),
+        "ms": backs["dlrm"]["kernel_ms"],
+        "kernel_ms": backs["dlrm"]["kernel_ms"],
+        "kernel_device_ms": backs["dlrm"]["kernel_device_ms"],
+        "plain_ms": backs["dlrm"]["plain_ms"],
+        "library_ms": backs["dlrm"]["library_ms"],
+        "bound_ms": backs["dlrm"]["bound_ms"],
+        "bound_by": backs["dlrm"]["bound_by"],
+        "shape": backs["dlrm"]["shape"], "table": backs["dlrm"]["table"],
+        "two_tower_hist": {k: backs["two_tower_hist"][k] for k in (
+            "shape", "table", "kernel_ms", "kernel_device_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "uniform_ids")},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

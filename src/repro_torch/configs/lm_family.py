@@ -9,13 +9,19 @@ Shapes:
 
 The JAX package's ``ArchSpec`` registry (built on ``jax.eval_shape`` for
 its dry run) is not ported; :func:`get_config` looks a configuration up by
-name.
+name.  For training, :func:`smoke_batch` is the reference's smoke batch
+(``lm_smoke_batch``) and :func:`loss_fn` its ``loss_fn``.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
+import torch
+
+from repro_torch.data import synth
+from repro_torch.models import transformer as T
 from repro_torch.models.transformer import MoEConfig, TransformerConfig
 
 SHAPES = {
@@ -32,7 +38,7 @@ def _smoke(cfg: TransformerConfig, **over) -> TransformerConfig:
         n_kv_heads=max(1, 4 // cfg.group_size if cfg.group_size <= 4 else 1),
         head_dim=16, d_ff=128, vocab=512, qkv_bias=cfg.qkv_bias,
         qk_norm=cfg.qk_norm, rope_theta=cfg.rope_theta, max_seq_len=256,
-        dtype="float32",
+        dtype="float32", remat=False,
     )
     if cfg.moe is not None:
         base["moe"] = MoEConfig(
@@ -82,3 +88,24 @@ def get_config(name: str, smoke: bool = False) -> TransformerConfig:
                        f"{sorted(CONFIGS)}")
     cfg = CONFIGS[name]
     return _smoke(cfg) if smoke else cfg
+
+
+def smoke_batch(cfg: TransformerConfig, kind: str = "train", seed: int = 0
+                ) -> Dict[str, np.ndarray]:
+    """The reference's ``lm_smoke_batch``: for ``"train"`` 2 sequences of
+    64 tokens and their labels (``synth.token_batches`` at ``seed``); for
+    a serve kind 2 single tokens."""
+    if kind == "train":
+        b = next(synth.token_batches(seed, cfg.vocab, batch=2, seq_len=64))
+        return {"tokens": b["tokens"], "labels": b["labels"]}
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab, size=(2,), dtype=np.int32)}
+
+
+def loss_fn(model: T.Transformer, batch) -> torch.Tensor:
+    """The LM loss on ``batch`` (numpy arrays are copied to the model's
+    device; token ids become int64 for the embedding's index)."""
+    dev = model.device
+    return T.loss_fn(model, {k: torch.as_tensor(v, device=dev).long()
+                             for k, v in batch.items()
+                             if k in ("tokens", "labels")})

@@ -1,6 +1,6 @@
 """The four recsys architectures of the JAX package, their batch sizes,
-smoke configs and serving entry point (``src/repro/configs/
-recsys_family.py``).
+smoke configs, serving entry point, training batches and losses
+(``src/repro/configs/recsys_family.py``).
 
   train_batch     batch 65,536      (training)
   serve_p99       batch 512         (online inference)
@@ -8,9 +8,11 @@ recsys_family.py``).
   retrieval_cand  batch 1 × 1,000,000 candidates (retrieval scoring)
 
 :func:`serve` computes what the reference's ``ArchSpec.serve_fn`` of each
-architecture computes.  The ``ArchSpec`` registry and the dry-run cells
-(built on ``jax.eval_shape``) are not ported; :func:`get_config` looks a
-configuration up by name.
+architecture computes, :func:`loss_fn` what its ``loss_fn`` computes, and
+:func:`train_batch` makes a ``train_batch`` (65,536) batch of the synth
+generators at a configuration's sizes.  The ``ArchSpec`` registry and the
+dry-run cells (built on ``jax.eval_shape``) are not ported;
+:func:`get_config` looks a configuration up by name.
 """
 
 from __future__ import annotations
@@ -127,3 +129,39 @@ def serve(name: str, model: R._Recsys, batch: Mapping) -> torch.Tensor:
     if "cand_ids" in b:
         return R.sasrec_score_candidates(model, b)
     return R.sasrec_encode(model, b["item_seq"])
+
+
+def train_batch(name: str, cfg, batch: int = BATCHES["train_batch"],
+                seed: int = 0) -> Dict[str, np.ndarray]:
+    """A training batch of ``batch`` examples (numpy) for ``name`` at
+    ``cfg``'s sizes, from the synth generator the reference's cells use:
+    DLRM dense, sparse and labels; xDeepFM sparse and labels; two-tower
+    users, history bags of HIST_LEN, items and logQ; SASRec sequences
+    with their positive and negative items."""
+    if name == "dlrm-rm2":
+        return synth.dlrm_batch(seed, batch, cfg.n_dense, cfg.n_sparse,
+                                cfg.vocab_per_table)
+    if name == "xdeepfm":
+        return synth.xdeepfm_batch(seed, batch, cfg.n_sparse,
+                                   cfg.vocab_per_table)
+    if name == "two-tower-retrieval":
+        return synth.twotower_batch(seed, batch, cfg.n_users, cfg.n_items,
+                                    HIST_LEN)
+    if name == "sasrec":
+        return synth.sasrec_batch(seed, batch, cfg.seq_len, cfg.n_items)
+    raise KeyError(f"unknown recsys config {name!r}")
+
+
+LOSSES = {"dlrm-rm2": R.dlrm_loss, "xdeepfm": R.xdeepfm_loss,
+          "two-tower-retrieval": R.twotower_loss, "sasrec": R.sasrec_loss}
+
+
+def loss_fn(name: str, model: R._Recsys, batch: Mapping) -> torch.Tensor:
+    """The training loss of ``name`` on ``batch`` (numpy arrays are copied
+    to the model's device): DLRM's and xDeepFM's BCE, two-tower's in-batch
+    softmax with logQ, SASRec's next-item BCE."""
+    if name not in LOSSES:
+        raise KeyError(f"unknown recsys config {name!r}")
+    dev = model.device
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    return LOSSES[name](model, b)

@@ -10,6 +10,9 @@
   :class:`~repro_torch.models.transformer.Transformer`.
 - Recsys weights: the same for DLRM, xDeepFM, two-tower and SASRec →
   the modules of :mod:`repro_torch.models.recsys`.
+- And back: :func:`model_tree` lays a model's tensors out as the JAX
+  package's parameter pytree (the transformer's layers stacked), which is
+  how train-state checkpoints are written.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.featurizer import Featurizer
+from repro_torch.dist.checkpoint import Stacked
 from repro_torch.core.index import DynamicIndex, Segment
 from repro_torch.core.tokenizer import Tokenizer
 from repro_torch.models import recsys
@@ -138,3 +142,39 @@ def recsys_from_jax(params: Mapping, cfg, device=None) -> recsys._Recsys:
     for name, p in want.items():
         _copy(p, got[name], name)
     return model
+
+
+def model_tree(model: torch.nn.Module,
+               named: Optional[Mapping[str, torch.Tensor]] = None):
+    """``named`` (default: the model's parameters; or any dict keyed by
+    parameter name, like the optimizer's moments) as the JAX package's
+    pytree of the model: dicts by leaf name, lists where the reference
+    has lists (``bot.0.w`` → ``{"bot": [{"w": ...}]}``), and for a
+    :class:`Transformer` the ``layers`` leaves as :class:`Stacked` lists
+    of the per-layer tensors, the inverse of :func:`transformer_from_jax`.
+    The tensors are the ones given, not copies."""
+    if named is None:
+        named = dict(model.named_parameters())
+    if isinstance(model, Transformer):
+        n = model.cfg.n_layers
+        return {"embed": named["embed"], "final_norm": named["final_norm"],
+                "layers": {leaf: Stacked(named[f"layers.{i}.{leaf}"]
+                                         for i in range(n))
+                           for leaf in layer_shapes(model.cfg)},
+                "lm_head": named["lm_head"]}
+    tree: dict = {}
+    for name, t in named.items():
+        *path, last = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = t
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)

@@ -1,10 +1,10 @@
-"""Seeded synthetic data: Zipfian TREC-like documents, the
-schema-heterogeneous JSON collections of the paper's Fig. 5, and the
+"""Seeded synthetic data: Zipfian TREC-like documents, LM token batches,
+the schema-heterogeneous JSON collections of the paper's Fig. 5, and the
 recsys batches.
 
 The same seed yields the same documents, objects and batches as the
-reference package's ``doc_generator``, ``json_collection`` and
-``*_batch``, so both index and score the same data.
+reference package's ``doc_generator``, ``token_batches``,
+``json_collection`` and ``*_batch``, so both index and score the same data.
 """
 
 from __future__ import annotations
@@ -34,6 +34,18 @@ def doc_generator(seed: int, n_docs: int, mean_len: int = 80) -> Iterator[Tuple[
         n = max(8, int(rng.normal(mean_len, mean_len / 3)))
         words = rng.choice(_WORDS, size=n, p=probs)
         yield f"doc{seed}_{i}", " ".join(words)
+
+
+def token_batches(seed: int, vocab: int, batch: int, seq_len: int,
+                  start_step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Deterministic LM batches; resumable from any step (ckpt restart)."""
+    step = start_step
+    while True:
+        rng = np.random.default_rng(hash((seed, step)) % 2**32)
+        toks = rng.integers(0, vocab, size=(batch, seq_len + 1), dtype=np.int32)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:].astype(np.int32),
+               "step": step}
+        step += 1
 
 
 def json_collection(seed: int = 0, scale: float = 1.0) -> Dict[str, list]:

@@ -1,4 +1,7 @@
-"""Device selection: entry points run on the card unless asked for the CPU."""
+"""Device selection: entry points run on the card unless asked for the CPU;
+and device-resident scalars made once."""
+
+import functools
 
 import torch
 
@@ -25,3 +28,12 @@ def sm_count(device: torch.device) -> int:
         _sm_count[dev] = \
             torch.cuda.get_device_properties(dev).multi_processor_count
     return _sm_count[dev]
+
+
+@functools.lru_cache(maxsize=None)
+def scalar(x: float, device: torch.device) -> torch.Tensor:
+    """The float32 scalar ``x`` on ``device``, made once per (value,
+    device) and never written: a tensor made from a Python number on every
+    step would be copied to the card each time, and PyTorch waits for
+    that copy (a host sync)."""
+    return torch.tensor(x, dtype=torch.float32, device=device)

@@ -1,11 +1,13 @@
-"""Wrapper of EmbeddingBag over padded bags (``csrc/embedding_bag.cu``).
+"""Wrappers of EmbeddingBag over padded bags (``csrc/embedding_bag.cu``)
+and of its backward with respect to the table
+(``csrc/embedding_bag_backward.cu``).
 
-For CUDA tensors it launches the hand-written kernel, or raises; for CPU
-tensors it computes the plain version (:mod:`.ref`).  ``launches`` counts
-kernel launches, and nothing else.
+For CUDA tensors each launches its hand-written kernel, or raises; for CPU
+tensors it computes the plain version (:mod:`.ref`).  ``launches`` and
+``backward_launches`` count kernel launches, and nothing else.
 
-The launch plan is :func:`plan`, a function of the shapes, the table's
-alignment and the card's SM count alone.
+The launch plans are :func:`plan` and :func:`backward_plan`, functions of
+the shapes, the alignment and the card's SM count alone.
 """
 
 import ctypes
@@ -16,16 +18,19 @@ import torch
 from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
-from .ref import embedding_bag_padded_ref
+from .ref import embedding_bag_backward_ref, embedding_bag_padded_ref
 
 NAME = "embedding_bag"
+BACKWARD = "embedding_bag_backward"
 DTYPES = (torch.float32, torch.bfloat16)
 WARPS = 8              # warps a block (kWarps)
 ROWS = 4               # rows a group of lanes has in flight (kRows)
 WARP_ROWS = 2          # rows a warp has in flight, a bag a warp (kWarpRows)
 WARPS_PER_SM = 64      # warps the runs of bags are cut for, per SM (two
                        # waves or more at the grouped kernel's occupancy)
+BACKWARD_BLOCKS_PER_SM = 8   # the backward's grid cap (grid-stride walk)
 launches = 0
+backward_launches = 0
 
 
 class Plan(NamedTuple):
@@ -76,28 +81,29 @@ def _launcher():
     return fn
 
 
-def _check(table, indices, weights):
+def _check(table, indices, weights, what: str = "table"):
+    """The checks both wrappers make; ``table`` is the table, or for the
+    backward grad_out ([B, D], the table's type), named by ``what``."""
     if table.dim() != 2 or indices.dim() != 2:
-        raise ValueError(f"table must be [V, D] and indices [B, L]; got "
+        form = "[V, D]" if what == "table" else "[B, D]"
+        raise ValueError(f"{what} must be {form} and indices [B, L]; got "
                          f"{tuple(table.shape)} and {tuple(indices.shape)}")
-    if table.shape[0] == 0:
-        raise ValueError("the table has no rows (V = 0)")
     if weights.shape != indices.shape:
         raise ValueError(f"weights must have the indices' shape "
                          f"{tuple(indices.shape)}, got {tuple(weights.shape)}")
     cpu = table.device.type == "cpu"
     if table.dtype not in DTYPES + ((torch.float64,) if cpu else ()):
-        raise TypeError(f"the table must be one of {DTYPES} (float64 too on "
-                        f"the CPU), got {table.dtype}")
+        raise TypeError(f"the {what} must be one of {DTYPES} (float64 too "
+                        f"on the CPU), got {table.dtype}")
     if indices.dtype != torch.int32:
         raise TypeError(f"indices must be int32, got {indices.dtype}")
     if weights.dtype != torch.float32:
         raise TypeError(f"weights must be float32, got {weights.dtype}")
     for name, x in (("indices", indices), ("weights", weights)):
         if x.device != table.device:
-            raise ValueError(f"{name} is on {x.device}, the table on "
+            raise ValueError(f"{name} is on {x.device}, the {what} on "
                              f"{table.device}")
-    for name, x in (("table", table), ("indices", indices),
+    for name, x in ((what, table), ("indices", indices),
                     ("weights", weights)):
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -114,6 +120,8 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     whose rows are not a multiple of 16 bytes, takes scalar loads."""
     global launches
     _check(table, indices, weights)
+    if table.shape[0] == 0:
+        raise ValueError("the table has no rows (V = 0)")
     if table.device.type == "cpu":
         return embedding_bag_padded_ref(table, indices, weights)
     if table.device.type != "cuda":
@@ -137,3 +145,82 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+class BackwardPlan(NamedTuple):
+    vec: int           # elements a load of grad_out: 16 bytes' worth, or 1
+    lanes: int         # lanes an item (a power of two, at most 32)
+    grid: int          # blocks of WARPS warps
+
+
+def backward_plan(n_items: int, d: int, elt: int, aligned: bool,
+                  sms: int) -> BackwardPlan:
+    """The backward's launch over ``n_items`` = B · L items and rows of D
+    elements of ``elt`` bytes (grad_out's type) on a card of ``sms`` SMs;
+    ``aligned``: grad_out starts on 16 bytes.  A row a multiple of 16
+    bytes takes 16-byte loads.  An item takes the fewest lanes (a power of
+    two, at most 32) that hold its row's vectors, 32 / lanes items a warp
+    at once; the grid covers every item once, at most
+    BACKWARD_BLOCKS_PER_SM blocks a SM, which walk the rest."""
+    vec = 16 // elt if aligned and (d * elt) % 16 == 0 else 1
+    vectors = -(-d // vec)
+    lanes = min(32, 1 << max(vectors - 1, 0).bit_length())
+    warps = -(-n_items // (32 // lanes))
+    grid = max(1, min(-(-warps // WARPS), sms * BACKWARD_BLOCKS_PER_SM))
+    return BackwardPlan(vec, lanes, grid)
+
+
+def _backward_launcher():
+    fn = build.load(BACKWARD).embedding_bag_backward_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
+                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def embedding_bag_backward(grad_out: torch.Tensor, indices: torch.Tensor,
+                           weights: torch.Tensor,
+                           num_rows: int) -> torch.Tensor:
+    """The gradient [num_rows, D] of :func:`embedding_bag` with respect to
+    a table of ``num_rows`` rows: ``grad[indices[b, i]] += weights[b, i] ·
+    grad_out[b]``, accumulated in float32 and cast once to grad_out's type,
+    which is the table's (float32 or bfloat16; float64 too on the CPU);
+    indices [B, L] int32 and weights
+    [B, L] float32, all contiguous on one device.  Ids in [-V, 0) wrap,
+    ids outside [-V, V) and items of weight 0 add nothing.  On the card
+    the rows are added with atomics, in an order that changes from run to
+    run (see ``csrc/embedding_bag_backward.cu`` for the tolerance)."""
+    global backward_launches
+    _check(grad_out, indices, weights, "grad_out")
+    if grad_out.shape[0] != indices.shape[0]:
+        raise ValueError(f"grad_out has {grad_out.shape[0]} bags, indices "
+                         f"{indices.shape[0]}")
+    if num_rows <= 0:
+        raise ValueError("the table has no rows (V = 0)")
+    dtype = grad_out.dtype
+    if grad_out.device.type == "cpu":
+        return embedding_bag_backward_ref(grad_out, indices, weights,
+                                          num_rows).to(dtype)
+    if grad_out.device.type != "cuda":
+        raise ValueError(f"no kernel for device {grad_out.device}")
+    b, l = indices.shape
+    d = grad_out.shape[1]
+    grad = torch.zeros((num_rows, d), dtype=torch.float32,
+                       device=grad_out.device)
+    if b == 0 or l == 0 or d == 0:
+        return grad.to(dtype)
+    p = backward_plan(b * l, d, grad_out.element_size(),
+                      grad_out.data_ptr() % 16 == 0, sm_count(grad_out.device))
+    launch = _backward_launcher()
+    with torch.cuda.device(grad_out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = launch(grad_out.data_ptr(), indices.data_ptr(),
+                     weights.data_ptr(), grad.data_ptr(), num_rows, b, l, d,
+                     int(dtype == torch.bfloat16), int(p.vec > 1),
+                     p.lanes.bit_length() - 1, p.grid, stream)
+    if err != 0:
+        raise RuntimeError(f"{BACKWARD} kernel launch failed: CUDA error "
+                           f"{err}")
+    backward_launches += 1
+    return grad.to(dtype)

@@ -16,7 +16,13 @@ NaN ("fill" mode) — a NaN row stays NaN at weight 0, since 0 · NaN is NaN.
   segment sum bit for bit, and its take-plus-einsum in value (at L = 1
   einsum returns w·row itself, -0.0 for a zero weight on a negative
   entry, where 0 + w·row is +0.0); the CUDA kernel does the same
-  operations in the same order.
+  operations in the same order;
+- :func:`embedding_bag_backward_ref` — the padded form's gradient with
+  respect to the table: ``grad[indices[b, i]] += weights[b, i] ·
+  grad_out[b]``, the products in float32 (float64 for a float64 table),
+  added in item order.  Ids in [-V, 0) wrap; ids outside [-V, V) read a NaN
+  row in the forward, and their gradient is dropped, as the gradient of
+  ``jnp.take``'s fill mode drops it.  Items of weight 0 add nothing.
 """
 
 import torch
@@ -67,3 +73,23 @@ def embedding_bag_padded_ref(table: torch.Tensor, indices: torch.Tensor,
     for i in range(l):
         acc = acc + w[:, i, None] * take(table, indices[:, i]).to(acc_t)
     return acc.to(table.dtype)
+
+
+def embedding_bag_backward_ref(grad_out: torch.Tensor, indices: torch.Tensor,
+                               weights: torch.Tensor,
+                               num_rows: int) -> torch.Tensor:
+    """grad_out [B, D]; indices [B, L]; weights [B, L] float32 → the
+    table's gradient [num_rows, D] in float32 (float64 for a float64
+    grad_out), each row's contributions added in item order."""
+    acc_t = torch.float64 if grad_out.dtype == torch.float64 \
+        else torch.float32
+    ids = indices.long().reshape(-1)
+    w = weights.to(acc_t).reshape(-1)
+    keep = (ids >= -num_rows) & (ids < num_rows) & (w != 0)
+    rows = torch.where(ids < 0, ids + num_rows, ids)[keep]
+    l = indices.shape[1]
+    bag = torch.arange(ids.numel(), device=ids.device)[keep] // max(l, 1)
+    grad = torch.zeros((num_rows, grad_out.shape[1]), dtype=acc_t,
+                       device=grad_out.device)
+    grad.index_add_(0, rows, w[keep, None] * grad_out.to(acc_t)[bag])
+    return grad

@@ -111,3 +111,67 @@ def decode_gqa_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bhgs,bshd->bhgd", p, v_cache.float())
     out = out / p.sum(dim=-1)[..., None]
     return out.to(q.dtype)
+
+
+def chunked_causal_gqa_attention(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, *, q_chunk: int,
+                                 kv_chunk: int) -> torch.Tensor:
+    """Flash-style blocked causal attention in plain PyTorch, the
+    reference's pure-jnp online softmax (``layers.py:69``): scores never
+    exceed [B, Hkv, G, q_chunk, kv_chunk]; a running (m, l, acc) over KV
+    chunks for each query chunk, in float32.
+
+    q [B, S, Hkv, G, Dh]; k/v [B, S, Hkv, Dh] → [B, S, Hkv, G, Dh]; S a
+    multiple of both chunks.  A KV chunk that lies wholly after a query
+    chunk's last position is skipped: the reference adds it with every
+    score masked to -1e30, which leaves (m, l, acc) bit for bit as they
+    were (alpha = 1, p = 0), since the first KV chunk already set m.
+    """
+    b, s, hkv, g, dh = q.shape
+    nq, nk = s // q_chunk, s // kv_chunk
+    scale = _inv_sqrt(dh)            # a CPU scalar: no copy to the card
+    qc = q.reshape(b, nq, q_chunk, hkv, g, dh)
+    kc = k.reshape(b, nk, kv_chunk, hkv, dh)
+    vc = v.reshape(b, nk, kv_chunk, hkv, dh)
+    blocks = []
+    for qi in range(nq):
+        q_tile = qc[:, qi].float()
+        m = torch.full((b, hkv, g, q_chunk, 1), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, hkv, g, q_chunk, 1), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((b, hkv, g, q_chunk, dh), dtype=torch.float32,
+                          device=q.device)
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
+        for kj in range(nk):
+            if kj * kv_chunk > (qi + 1) * q_chunk - 1:
+                break                       # wholly masked (see above)
+            sco = torch.einsum("bqhgd,bkhd->bhgqk", q_tile,
+                               kc[:, kj].float()) * scale
+            kpos = kj * kv_chunk + torch.arange(kv_chunk, device=q.device)
+            mask = qpos[:, None] >= kpos[None, :]
+            sco = torch.where(mask, sco, NEG_INF)
+            m_new = torch.maximum(m, sco.amax(dim=-1, keepdim=True))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(sco - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + torch.einsum("bhgqk,bkhd->bhgqd", p,
+                                             vc[:, kj].float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)
+        blocks.append(out.permute(0, 3, 1, 2, 4))   # [B, q_chunk, Hkv, G, Dh]
+    return torch.cat(blocks, dim=1).to(q.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """Mean token cross entropy in float32; labels equal to ``ignore_id``
+    are masked (``layers.py:145``).  The loader pads with label 0, which
+    is not masked and counts, as in the reference."""
+    logits = logits.float()
+    mask = labels != ignore_id
+    labels_safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1)

@@ -1,19 +1,22 @@
-"""Recsys architectures in PyTorch, for serving: DLRM-RM2, xDeepFM (CIN),
-two-tower retrieval and SASRec — the JAX package's ``repro.models.recsys``
-without the losses (they belong to training).
+"""Recsys architectures in PyTorch: DLRM-RM2, xDeepFM (CIN), two-tower
+retrieval and SASRec, with their training losses — the JAX package's
+``repro.models.recsys``.
 
 Each model is an ``nn.Module`` whose parameters are named like the JAX
 leaves (``tables``, ``bot.0.w``, ``cin.1``, ``blocks.wq`` stacked on
 [n_blocks], ...), kept in the JAX ``[in, out]`` layout, so
 :func:`repro_torch.convert.recsys_from_jax` copies them without a
-transpose.  Parameters are made without gradients.
+transpose.  Parameters are made without gradients (serving); the trainer
+turns them on for the model it trains, and each lookup's table gradient
+is the ``embedding_bag`` backward kernel's.
 
 Every table lookup goes through the ``embedding_bag`` kernel's op
 (:func:`repro_torch.kernels.embedding_bag.embedding_bag_padded`), at the
 points where the reference takes rows, so the launches per call are fixed:
-DLRM 1, xDeepFM 2, two-tower user embedding 2 (3 with candidates), SASRec
-encoding 1 (2 with candidates).  Ids follow ``jnp.take``: [-V, 0) wraps,
-outside [-V, V) gives a NaN row.
+DLRM 1, xDeepFM 2, two-tower user embedding 2 (3 with candidates or in
+its loss), SASRec encoding 1 (2 with candidates, 3 in its loss); a
+training step launches the backward kernel as many times.  Ids follow
+``jnp.take``: [-V, 0) wraps, outside [-V, V) gives a NaN row.
 
 Kept from the reference as it is:
 - DLRM's top MLP takes ``embed_dim + n_pairs`` inputs; ``cfg.top_mlp[0]``
@@ -21,7 +24,12 @@ Kept from the reference as it is:
 - SASRec scores candidates against ``h[b, len - 1]``, but its batches are
   padded on the left, so for 2·len − 1 < S that row is one that
   ``sasrec_encode`` zeroed, and the score row is all zero (ROADMAP.md §3,
-  fault (i)).
+  fault (i));
+- the losses' formulas, SASRec's ``log1p(exp(·))`` (not the stable form)
+  included.  Two-tower's streamed loss (``loss_chunk``) differs in its
+  backward: where the reference differentiates through its scan, the port
+  recomputes each [B, chunk] block of the softmax from the saved log
+  normalizer (:class:`_StreamedLogZ`), so memory stays O(B · chunk).
 """
 
 from __future__ import annotations
@@ -426,3 +434,115 @@ def sasrec_score_candidates(model: SASRec, batch: Dict[str, torch.Tensor]
     if cand.dim() == 2:                                      # shared cands
         return _wide(torch.matmul(last, cand.T))
     return _wide(torch.einsum("bd,bcd->bc", last, cand))
+
+
+# --------------------------------------------------------------------- #
+# training losses
+# --------------------------------------------------------------------- #
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor
+                    ) -> torch.Tensor:
+    logits = _wide(logits)
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+
+
+def dlrm_loss(model: DLRM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    logits = dlrm_forward(model, batch["dense"], batch["sparse"])
+    return bce_with_logits(logits, batch["labels"])
+
+
+def xdeepfm_loss(model: XDeepFM, batch: Dict[str, torch.Tensor]
+                 ) -> torch.Tensor:
+    logits = xdeepfm_forward(model, batch["sparse"])
+    return bce_with_logits(logits, batch["labels"])
+
+
+TEMPERATURE = 20.0
+
+
+class _StreamedLogZ(torch.autograd.Function):
+    """logz[b] = logsumexp_j (20 · u_b·i_j − logq_j), streamed over item
+    chunks of ``c`` with a running max and sum (the reference's
+    ``loss_chunk`` scan, ``recsys.py:235-252``).  Saves only u, i, logq,
+    and the running (m, s); the backward recomputes each [B, c] block of
+    the softmax, so the [B, B] logits are never held in either pass."""
+
+    @staticmethod
+    def forward(ctx, u, i, logq, c):
+        b = u.shape[0]
+        acc_t = torch.promote_types(u.dtype, torch.float32)
+        m = torch.full((b,), -1e30, dtype=acc_t, device=u.device)
+        s = torch.zeros((b,), dtype=acc_t, device=u.device)
+        for lo in range(0, b, c):
+            lg = (_wide(torch.matmul(u, i[lo:lo + c].T)) * TEMPERATURE
+                  - logq[None, lo:lo + c])
+            m_new = torch.maximum(m, lg.amax(dim=-1))
+            s = s * torch.exp(m - m_new) + torch.exp(
+                lg - m_new[:, None]).sum(-1)
+            m = m_new
+        ctx.save_for_backward(u, i, logq, m, s)
+        ctx.c = c
+        return m + torch.log(torch.clamp(s, min=1e-30))
+
+    @staticmethod
+    def backward(ctx, g):
+        u, i, logq, m, s = ctx.saved_tensors
+        c = ctx.c
+        logz = m + torch.log(torch.clamp(s, min=1e-30))
+        gu = torch.zeros_like(u, dtype=torch.promote_types(u.dtype,
+                                                           torch.float32))
+        gi = torch.zeros_like(gu)
+        for lo in range(0, u.shape[0], c):
+            lg = (_wide(torch.matmul(u, i[lo:lo + c].T)) * TEMPERATURE
+                  - logq[None, lo:lo + c])
+            w = torch.exp(lg - logz[:, None]) * g[:, None] * TEMPERATURE
+            w = w.to(u.dtype)
+            gu += torch.matmul(w, i[lo:lo + c])
+            gi[lo:lo + c] = torch.matmul(w.T, u)
+        return gu.to(u.dtype), gi.to(i.dtype), None, None
+
+
+def twotower_loss(model: TwoTower, batch: Dict[str, torch.Tensor]
+                  ) -> torch.Tensor:
+    """In-batch sampled softmax with logQ correction (temperature 20).
+    With ``loss_chunk`` set and a batch larger than it, the log normalizer
+    streams over item chunks (:class:`_StreamedLogZ`); the batch must be a
+    multiple of the chunk, as the reference's reshape needs."""
+    cfg = model.cfg
+    u = twotower_user_embed(model, batch["user_ids"], batch["hist_ids"],
+                            batch["hist_w"])
+    i = twotower_item_embed(model, batch["item_ids"])
+    logq = batch.get("logq")
+    b = u.shape[0]
+    gold = _wide((u * i).sum(dim=-1)) * TEMPERATURE
+    if logq is not None:
+        gold = gold - logq
+    if not cfg.loss_chunk or b <= cfg.loss_chunk:
+        logits = _wide(torch.matmul(u, i.T)) * TEMPERATURE
+        if logq is not None:
+            logits = logits - logq[None, :]
+        logz = torch.logsumexp(logits, dim=-1)
+        return torch.mean(logz - gold)
+    if b % cfg.loss_chunk:
+        raise ValueError(f"batch {b} is not a multiple of loss_chunk "
+                         f"{cfg.loss_chunk}")
+    lq = logq if logq is not None else torch.zeros(
+        (b,), dtype=gold.dtype, device=u.device)
+    logz = _StreamedLogZ.apply(u, i, lq, cfg.loss_chunk)
+    return torch.mean(logz - gold)
+
+
+def sasrec_loss(model: SASRec, batch: Dict[str, torch.Tensor]
+                ) -> torch.Tensor:
+    """Next-item BCE with sampled negatives (the paper's objective), in the
+    reference's form: log1p(exp(−pos)) + log1p(exp(neg)), masked where
+    ``pos_items`` is 0."""
+    h = sasrec_encode(model, batch["item_seq"])              # [B, S, D]
+    pos = _take(model.item_embed, batch["pos_items"])
+    neg = _take(model.item_embed, batch["neg_items"])
+    pos_logit = _wide((h * pos).sum(dim=-1))
+    neg_logit = _wide((h * neg).sum(dim=-1))
+    mask = (batch["pos_items"] != 0).to(pos_logit.dtype)
+    loss = torch.log1p(torch.exp(-pos_logit)) + torch.log1p(
+        torch.exp(neg_logit))
+    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,5 +1,6 @@
 """GQA transformer LM, dense, in PyTorch: the JAX package's
-``repro.models.transformer`` for serving (forward, prefill, decode).
+``repro.models.transformer`` (forward and loss for training; prefill and
+decode for serving).
 
 Covers qwen2.5 / yi / internlm2 (dense GQA, optional QKV bias, optional
 QK-norm).  The MoE configurations (qwen3-moe, qwen2-moe) need
@@ -9,8 +10,12 @@ A model is a :class:`Transformer` module holding one :class:`DecoderLayer`
 per layer (the JAX package stacks layer leaves along [L] and scans; eager
 PyTorch walks a list).  Weights keep the JAX ``[in, out]`` layout and the
 products are ``x @ w``, so :func:`repro_torch.convert.transformer_from_jax`
-copies leaves without a transpose.  Parameters are made without gradients:
-this module serves.
+copies leaves without a transpose.  Parameters are made without gradients
+(serving); the trainer turns them on for the model it trains.
+``forward`` builds a graph when grad mode is on; ``prefill`` and
+``decode_step`` never do.  ``remat`` recomputes each layer in the
+backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``),
+and ``attn_chunk_q`` / ``attn_chunk_kv`` run the blocked attention.
 
 Where a line-by-line port goes wrong, and what this one does:
 
@@ -36,11 +41,13 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
 
-from .layers import (apply_rope, causal_gqa_attention, rms_norm,
-                     rope_frequencies, rope_rotate, swiglu)
+from .layers import (apply_rope, causal_gqa_attention,
+                     chunked_causal_gqa_attention, cross_entropy_loss,
+                     rms_norm, rope_frequencies, rope_rotate, swiglu)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,11 +77,12 @@ class TransformerConfig:
     max_seq_len: int = 32_768
     moe: Optional[MoEConfig] = None
     dtype: str = "bfloat16"
-    # flash-style blocked attention, not ported: a prompt longer than a
-    # set chunk raises in forward.  The JAX config's remat, scan_unroll,
-    # attn_chunk_kv and moe_shard steer its compiler and sharding and have
-    # no counterpart here.
+    remat: bool = True        # recompute each layer in the backward
+    # flash-style blocked attention chunk sizes (0 = off); the JAX
+    # config's scan_unroll and moe_shard steer its compiler and sharding
+    # and have no counterpart here
     attn_chunk_q: int = 0
+    attn_chunk_kv: int = 0
 
     @property
     def group_size(self) -> int:
@@ -258,36 +266,64 @@ def _layer(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
     q = apply_rope(q.reshape(b, s, -1, cfg.head_dim), cos, sin
                    ).reshape(q.shape)
     k = apply_rope(k, cos, sin)
-    attn = causal_gqa_attention(q, k, v).reshape(b, s, -1)
-    return _mlp(x + torch.matmul(attn, lp["wo"]), lp)
+    if cfg.attn_chunk_q and s > cfg.attn_chunk_q:
+        q_chunk = min(cfg.attn_chunk_q, s)
+        kv_chunk = min(cfg.attn_chunk_kv or cfg.attn_chunk_q, s)
+        if s % q_chunk or s % kv_chunk:
+            raise ValueError(f"sequence {s} is not a multiple of the "
+                             f"attention chunks ({q_chunk}, {kv_chunk})")
+        attn = chunked_causal_gqa_attention(q, k, v, q_chunk=q_chunk,
+                                            kv_chunk=kv_chunk)
+    else:
+        attn = causal_gqa_attention(q, k, v)
+    return _mlp(x + torch.matmul(attn.reshape(b, s, -1), lp["wo"]), lp)
 
 
-@torch.no_grad()
+def _layer_remat(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
+                 layer: "DecoderLayer") -> torch.Tensor:
+    """One layer whose activations are recomputed in the backward."""
+    def body(x, *weights):
+        return _layer(cfg, cos, sin, x, dict(zip(names, weights)))
+    names = list(layer.tensors())
+    return checkpoint(body, x, *layer.tensors().values(),
+                      use_reentrant=False)
+
+
 def forward(model: Transformer, tokens: torch.Tensor,
             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """tokens [B, S] → logits [B, S, V].
+    """tokens [B, S] → logits [B, S, V]; a graph is built when grad mode
+    is on, each layer under ``checkpoint`` where ``cfg.remat`` is set.
 
     With ``dtype`` (e.g. float32 for a reference run of a bfloat16 model),
     every weight is widened to it just before use, one layer at a time.
     """
     cfg = model.cfg
     b, s = tokens.shape
-    if cfg.attn_chunk_q and s > cfg.attn_chunk_q:
-        raise NotImplementedError(
-            "chunked causal attention (attn_chunk_q) is not ported yet: it "
-            "belongs to the training and long-prefill slice")
     cos, sin = model.rope(s)
     x = model.embed[tokens]
     if dtype is not None:
         x = x.to(dtype)
+    remat = (cfg.remat and dtype is None and torch.is_grad_enabled()
+             and model.embed.requires_grad)
     for layer in model.layers:
-        x = _layer(cfg, cos, sin, x, layer.tensors(dtype))
+        if remat:
+            x = _layer_remat(cfg, cos, sin, x, layer)
+        else:
+            x = _layer(cfg, cos, sin, x, layer.tensors(dtype))
     norm, head = model.final_norm, model.lm_head
     if dtype is not None:
         norm, head = norm.to(dtype), head.to(dtype)
     return torch.matmul(rms_norm(x, norm), head)
 
 
+def loss_fn(model: Transformer, batch) -> torch.Tensor:
+    """Mean next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` ([B, S] each), in float32."""
+    logits = forward(model, batch["tokens"])
+    return cross_entropy_loss(logits, batch["labels"])
+
+
+@torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """Prefill forward (logits only)."""
     return forward(model, tokens)

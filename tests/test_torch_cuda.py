@@ -477,6 +477,123 @@ def test_recsys_on_card_runs_the_kernel_only(cuda_device, monkeypatch, name,
 
 
 # ------------------------------------------------------------------ #
+# embedding_bag's backward and recsys training
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("case", chip_smoke.BAG_BACKWARD_CASES,
+                         ids=[c[0] for c in chip_smoke.BAG_BACKWARD_CASES])
+def test_embedding_bag_backward_equals_plain(cuda_device, case):
+    """The cases of ``chip_smoke.py``'s ``bag_backward_small``: within
+    n · 2^-23 · Σ|terms| a element (atomics add in another order; plus a
+    bfloat16 ulp for bfloat16) of the plain version, one launch a call."""
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag_backward, embedding_bag_backward_ref)
+    name, v, d, b, l, dtype = case[:6]
+    g, idx, w = chip_smoke.bag_backward_case(*case)
+    dt = getattr(torch, dtype)
+    host = embedding_bag_backward_ref(g, idx, w, v).to(dt)
+    bound = chip_smoke.bag_backward_bound(g, idx, w, v)
+    gd = (chip_smoke.off_16(g, cuda_device)
+          if name == "grad_out_off_16_bytes" else g.to(cuda_device))
+    before = bag_kernel.backward_launches
+    got = embedding_bag_backward(gd, idx.to(cuda_device), w.to(cuda_device),
+                                 v)
+    assert bag_kernel.backward_launches == before + int(b > 0)
+    assert got.dtype == dt and got.shape == (v, d)
+    assert chip_smoke.bag_backward_close(got.cpu(), host, bound)[2]
+
+
+def test_backward_launches_once_per_lookup(cuda_device, monkeypatch):
+    """A DLRM smoke training step on the card launches the forward and the
+    backward kernel once each (one lookup), never the plain backward."""
+    from repro_torch.kernels.embedding_bag import kernel as k
+
+    def no_plain(*args):
+        raise AssertionError("the card took the plain backward")
+    monkeypatch.setattr(k, "embedding_bag_backward_ref", no_plain)
+    cfg = recsys_family.get_config("dlrm-rm2", smoke=True)
+    model = TR.init_params(cfg, torch.Generator().manual_seed(1),
+                           "cpu").to(cuda_device).requires_grad_(True)
+    batch = recsys_family.smoke_batch("dlrm-rm2", "train")
+    f0, b0 = k.launches, k.backward_launches
+    recsys_family.loss_fn("dlrm-rm2", model, batch).backward()
+    torch.cuda.synchronize()
+    assert (k.launches - f0, k.backward_launches - b0) == (1, 1)
+    assert model.tables.grad is not None
+
+
+def test_dlrm_train_step_on_card_matches_host(cuda_device):
+    """One DLRM smoke training step on the card against the same step on
+    the CPU: the parameters within ``chip_smoke.params_close``'s bound
+    (the host's float32-vs-float64 spread, or an AdamW direction)."""
+    cfg = recsys_family.get_config("dlrm-rm2", smoke=True)
+    batch = recsys_family.smoke_batch("dlrm-rm2", "train", seed=2)
+
+    def make(dev):
+        m = TR.init_params(cfg, torch.Generator().manual_seed(3),
+                           "cpu").to(dev)
+        return chip_smoke.recsys_trainer("dlrm-rm2", cfg, m, batch, 1)
+    card = make(cuda_device)
+    card.train()
+    ref32, ref64 = chip_smoke.host_runs(make)
+    got = {n: p.detach() for n, p in card.model.named_parameters()}
+    chip_smoke.params_close(got, ref32, ref64, 1e-3, 1)
+
+
+@pytest.mark.parametrize("name", ["dlrm-rm2", "two-tower-retrieval",
+                                  "internlm2-1.8b"])
+def test_train_step_makes_no_host_sync(cuda_device, name):
+    """A training step (loss, backward with the kernels, AdamW) reads
+    nothing back to the host: two profiled steps make no more stream,
+    device or event syncs and no more synchronous copies than one (the
+    profiler's own cancel).  Two-tower streams its softmax (loss_chunk 4
+    of 8); the LM runs remat and blocked attention."""
+    import dataclasses
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import lm_family
+    from repro_torch.train.optimizer import init_opt_state, make_train_step
+    syncs = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+             "cudaEventSynchronize", "cudaMemcpy")
+    if name == "internlm2-1.8b":
+        cfg = dataclasses.replace(get_config(name, smoke=True), remat=True,
+                                  attn_chunk_q=16, attn_chunk_kv=16)
+        model = TT.init_params(cfg, torch.Generator().manual_seed(0),
+                               "cpu").to(cuda_device)
+        batch = lm_family.smoke_batch(cfg, "train")
+        loss = lm_family.loss_fn
+    else:
+        cfg = recsys_family.get_config(name, smoke=True)
+        if name == "two-tower-retrieval":
+            cfg = dataclasses.replace(cfg, loss_chunk=4)
+        model = TR.init_params(cfg, torch.Generator().manual_seed(0),
+                               "cpu").to(cuda_device)
+        batch = recsys_family.smoke_batch(name, "train")
+
+        def loss(m, b):
+            return recsys_family.loss_fn(name, m, b)
+    batch = {k: torch.as_tensor(v, device=cuda_device)
+             for k, v in batch.items()}
+    model.requires_grad_(True)
+    state = init_opt_state(model)
+    step = make_train_step(loss)
+    step(model, state, batch)                      # warm-up
+    torch.cuda.synchronize()
+
+    def window(n):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                step(model, state, batch)
+        names = Counter(e.name for e in prof.events())
+        assert names["cudaLaunchKernel"] > 0
+        return Counter({k: names[k] for k in syncs if names[k]})
+    one, two = window(1), window(2)
+    assert two - one == Counter(), (one, two)
+
+
+# ------------------------------------------------------------------ #
 # sharded serving
 # ------------------------------------------------------------------ #
 SHARDED_QUERIES = ["school education student", "government law state",

@@ -47,7 +47,11 @@ def test_importing_every_module_loads_no_jax_or_reference():
             "repro_torch.dist.checkpoint", "repro_torch.tiered",
             "repro_torch.tiered.manifest", "repro_torch.tiered.cache",
             "repro_torch.tiered.compaction",
-            "repro_torch.tiered.store"} <= set(mods)
+            "repro_torch.tiered.store", "repro_torch.train",
+            "repro_torch.train.optimizer", "repro_torch.train.trainer",
+            "repro_torch.dist.compression", "repro_torch.data.pipeline",
+            "repro_torch.launch.train",
+            "repro_torch.kernels.embedding_bag.ops"} <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
@@ -140,6 +144,11 @@ tw = reopened.warren()
 with tw:
     assert len(tw.annotations(":")) == 20
 reopened.close()
+import torch
+cm.save(5, {"w": torch.ones(3, dtype=torch.bfloat16), "step": 5},
+        block=True)
+got = cm.restore(5, {"w": torch.zeros(3, dtype=torch.bfloat16), "step": 0})
+assert got["step"] == 5 and got["w"].tolist() == [1.0, 1.0, 1.0]
 print("ok")
 """
 
@@ -147,8 +156,8 @@ print("ok")
 def test_durable_formats_without_msgpack_or_zstandard():
     """With ``msgpack`` and ``zstandard`` blocked on ``sys.meta_path``:
     every module imports, and a WAL, a static run, replica WALs, a demoted
-    group, an index checkpoint and a tiered run set are written and read
-    back."""
+    group, an index checkpoint, a tiered run set and a train-state
+    checkpoint with a bfloat16 leaf are written and read back."""
     mods = _modules()
     code = (_BLOCKED + f"for m in {mods!r}:\n    __import__(m)\n"
             + _DURABLE)

@@ -180,7 +180,7 @@ def test_forward_with_widened_weights():
 
 
 # fields that steer the JAX package's compiler and sharding only
-JAX_ONLY = {"remat", "scan_unroll", "attn_chunk_kv", "moe_shard"}
+JAX_ONLY = {"scan_unroll", "moe_shard"}
 
 
 def test_configs_equal_jax_field_by_field():
@@ -212,13 +212,22 @@ def test_moe_config_raises(name):
 
 
 def test_chunked_attention_raises():
-    """attn_chunk_q (blocked attention) is not ported: a prompt longer than
-    the chunk raises rather than running unchunked."""
+    """attn_chunk_q (blocked attention) runs the chunked path where the
+    prompt is longer than the chunk, equal to the plain path within the
+    reference's own 2e-4 (``tests/test_perf_paths.py``); a length that is
+    not a multiple of the chunk raises, as the reference's reshape does."""
     cfg = dataclasses.replace(TF.get_config("qwen2.5-14b", smoke=True),
                               attn_chunk_q=4)
     model = TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    plain = TT.Transformer(dataclasses.replace(cfg, attn_chunk_q=0), "cpu")
+    plain.load_state_dict(model.state_dict())
+    toks = torch.randint(0, cfg.vocab, (1, 16),
+                         generator=torch.Generator().manual_seed(1))
+    np.testing.assert_allclose(TT.forward(model, toks).numpy(),
+                               TT.forward(plain, toks).numpy(),
+                               rtol=2e-4, atol=2e-4)
     TT.forward(model, torch.zeros((1, 4), dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="attn_chunk_q"):
+    with pytest.raises(ValueError, match="multiple"):
         TT.forward(model, torch.zeros((1, 5), dtype=torch.int64))
 
 
