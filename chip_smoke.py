@@ -129,13 +129,17 @@ non-zero:
    device time, its plain version, the bound over distinct rows and the
    bound over every reference (``bound_refs_ms``: the floor where the L2
    cannot hold the table);
-16. bag_backward_small: the embedding_bag backward kernel against its
-   plain version (on the card and on the host): ids named again within
-   and across bags, wrapped and dropped ids, zero weights, float32 and
-   bfloat16, D not a multiple of 4, B = 0, two vectors a lane, grad_out
-   off 16 bytes, a table off 16 bytes through the autograd Function —
-   per element within n · 2^-23 · Σ|terms| (the atomics' order; plus a
-   bfloat16 ulp for bfloat16), the bound printed;
+16. bag_backward_small: the embedding_bag backward kernel bit for bit
+   against the plain model of its order (``embedding_bag_backward_sorted_
+   ref``, NaN masks equal), two calls the same bits, and against the
+   item-order plain version (on the card and on the host) per element
+   within n · 2^-23 · Σ|terms| (plus a bfloat16 ulp for bfloat16), the
+   bound printed: ids named again within and across bags, wrapped and
+   dropped ids, zero weights, float32 and bfloat16, D not a multiple of 4,
+   B = 0, two vectors a lane, grad_out off 16 bytes, a table off 16 bytes
+   through the autograd Function, inf and NaN in grad_out rows of bags
+   with zero-weight items (fault (s): NaN where the reference has it), rows
+   named far more than PIECE times, runs of exactly PIECE and PIECE + 1;
 17. train_lm, the training slice's path A: the port's pipeline over 16
    seeded documents of about 8,192 words (ingest, ``dup:``, 4,096-token
    ``seg:`` windows), ``IndexedCorpusLoader``, then ``Trainer`` on
@@ -158,14 +162,19 @@ non-zero:
    through ``Trainer`` (the loss falls), embedding_bag's forward and
    backward launch counts zeroed just before and read just after (1 and
    3 a step each), step ms, examples/s, peak memory, one more step
-   profiled; then the four models at their smoke configs, 3 card steps
-   against 3 host steps;
+   profiled; each lookup of one more step through both kernels, the
+   backward bit for bit against its sorted model; then the four models at
+   their smoke configs, 3 card steps against 3 host steps;
 20. bag_backward_deploy: the backward kernel at DLRM's train shape
    (65,536 × 26 bags of one over [26 M, 64]) and two-tower's history
-   bags ([65,536, 8] over [10^6, 256]), against its plain version,
-   timed in turns with autograd's backward of ``F.embedding_bag``,
-   beside its device time, its plain version and the bound over distinct
-   rows (read and written once);
+   bags ([65,536, 8] over [10^6, 256], Zipf and uniform ids), bit for bit
+   against its sorted model and twice, within the bound of the item-order
+   plain version, timed in turns with autograd's backward of
+   ``F.embedding_bag``, beside its device time (every kernel of a call,
+   and each part: keys, sort, reduction, combine), ``torch.sort(stable=
+   True)`` of the same keys, the kept items, runs, long runs and pieces,
+   its plain version and the bound over distinct rows (read and written
+   once);
 21. the kernels line; the last line is ``{"ok": true, "device": ...}``.
 
 It needs a CUDA card and the repository's ``src/`` beside it, and exits
@@ -365,6 +374,49 @@ def kernel_device_ms(fn, kernel_name: str, n: int = TIMED_LAUNCHES) -> float:
              launched=n, attempt=attempt + 1)
     raise AssertionError(f"profiler saw {len(times)} launches of "
                          f"{kernel_name}, expected {n}")
+
+
+def kernels_device_ms(fn, prefix: str, per_call: dict,
+                      n: int = TIMED_LAUNCHES) -> dict:
+    """Mean device time per call of ``fn`` of each CUDA kernel named
+    ``<prefix>_<name>`` (a call that launches several kernels), with
+    ``per_call`` {name: its launches a call}: {name: ms a call, ...,
+    "total": their sum}.  As in :func:`kernel_device_ms` the profiler may
+    drop events, so each mean is over the launches it kept (at least
+    half)."""
+    import torch
+    pat = re.compile(re.escape(prefix) + r"_([a-z_]+)")
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(PROFILE_TRIES):
+        events, _ = device_events(lambda: [fn() for _ in range(n)])
+        seen = {}
+        for name, ms in events:
+            m = pat.search(name)
+            if m:
+                seen.setdefault(m.group(1), []).append(ms)
+        if set(seen) == set(per_call) and all(
+                n // 2 * k <= len(seen[key]) <= n * k
+                for key, k in per_call.items()):
+            split = {key: k * float(np.mean(seen[key]))
+                     for key, k in per_call.items()}
+            return {**split, "total": sum(split.values())}
+        emit("profiler_dropped", kernel=prefix, launched=n,
+             seen={key: len(t) for key, t in seen.items()},
+             attempt=attempt + 1)
+    counts = {key: len(t) for key, t in seen.items()}
+    raise AssertionError(f"profiler saw {counts} launches of {prefix}_*, "
+                         f"expected {per_call} × {n}")
+
+
+def all_device_ms(fn, n: int = TIMED_LAUNCHES) -> float:
+    """Mean device time per call of ``fn``: every kernel and copy it
+    launches, from the profiler (the events it kept, over ``n``)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    events, _ = device_events(lambda: [fn() for _ in range(n)])
+    return sum(ms for _, ms in events) / n
 
 
 def sweep_bound(t: int, nb: int, bs: int, kept: int, bw: float,
@@ -2501,10 +2553,12 @@ def same_bits(a, b) -> bool:
     import torch
     if a.dtype != b.dtype or a.shape != b.shape:
         return False
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    if torch.equal(a.view(view), b.view(view)):   # the same bits, NaNs too
+        return True
     na, nb = torch.isnan(a), torch.isnan(b)
     if not torch.equal(na, nb):
         return False
-    view = torch.int16 if a.element_size() == 2 else torch.int32
     return torch.equal(torch.where(na, 0, a).view(view),
                        torch.where(nb, 0, b).view(view))
 
@@ -2901,7 +2955,11 @@ def phase_bag_deploy(dev, bw, flops, bulk: int = BULK) -> dict:
 # phase 16: embedding_bag's backward against its plain version
 # --------------------------------------------------------------------- #
 # (name, V, D, B, L, dtype, ids): "dup" names rows again within a bag and
-# across bags; "wrap_bad" mixes ids in [-V, 0) with ids outside [-V, V)
+# across bags; "wrap_bad" mixes ids in [-V, 0) with ids outside [-V, V);
+# "nonfinite" puts inf, -inf and NaN in grad_out rows of bags that hold
+# zero-weight items (fault (s)), an out-of-range id among them; "hot" names
+# two rows far more than PIECE times; "runs" names rows exactly PIECE,
+# PIECE + 1 and 2 · PIECE + 1 times, with no zero weight
 BAG_BACKWARD_CASES = [
     ("dup_within_and_across_bags", 20, 64, 40, 6, "float32", "dup"),
     ("wrapped_and_dropped_ids", 30, 16, 24, 5, "float32", "wrap_bad"),
@@ -2917,6 +2975,12 @@ BAG_BACKWARD_CASES = [
     ("grad_out_off_16_bytes", 50, 64, 20, 4, "float32", "dup"),
     ("table_off_16_bytes_through_the_function", 50, 64, 20, 4, "float32",
      "dup"),
+    ("nonfinite_zero_weights", 40, 64, 48, 8, "float32", "nonfinite"),
+    ("nonfinite_zero_weights_bf16", 40, 64, 48, 8, "bfloat16", "nonfinite"),
+    ("nonfinite_d7_scalar_loads", 30, 7, 40, 4, "float32", "nonfinite"),
+    ("hot_rows_past_a_piece", 200, 256, 300, 8, "float32", "hot"),
+    ("hot_rows_bags_of_one", 5000, 64, 4000, 1, "float32", "hot"),
+    ("runs_of_c_and_c_plus_1", 100, 64, 64, 4, "float32", "runs"),
 ]
 
 
@@ -2924,13 +2988,25 @@ def bag_backward_case(name, v, d, b, l, dtype, ids):
     """Seeded (grad_out [B, D], indices [B, L] int32, weights [B, L] f32)
     on the host."""
     import torch
+    from repro_torch.kernels.embedding_bag import PIECE
     rng = np.random.default_rng(v * 13 + d * 5 + b + l)
-    g = torch.from_numpy(rng.standard_normal((b, d)).astype(
-        np.float32)).to(getattr(torch, dtype))
+    g = rng.standard_normal((b, d)).astype(np.float32)
     if ids == "dup":
         idx = rng.integers(0, max(v // 4, 1), size=(b, l))
         if b:
             idx[:, -1] = idx[:, 0]                 # again within the bag
+    elif ids in ("hot", "nonfinite"):
+        idx = rng.integers(0, v, size=(b, l))
+        if ids == "hot":                           # rows 3 and v - 1
+            idx[rng.random((b, l)) < 0.4] = 3
+            idx[rng.random((b, l)) < 0.1] = -1
+    elif ids == "runs":
+        # rows 0-2 named PIECE, PIECE + 1 and 2 · PIECE + 1 times, in bags
+        # spread over the batch; the other items name rows 3.. once or twice
+        idx = 3 + rng.permutation(b * l) % (v - 3)
+        named = np.repeat([0, 1, 2], [PIECE, PIECE + 1, 2 * PIECE + 1])
+        idx[rng.choice(b * l, size=named.size, replace=False)] = named
+        idx = idx.reshape(b, l)
     else:
         idx = rng.integers(-v, v, size=(b, l))
         if ids == "wrap_bad":
@@ -2938,45 +3014,73 @@ def bag_backward_case(name, v, d, b, l, dtype, ids):
             idx = np.where(bad, np.where(rng.random((b, l)) < 0.5,
                                          v + idx % 5, -v - 1 - idx % 5), idx)
     w = rng.standard_normal((b, l)).astype(np.float32)
-    w[rng.random((b, l)) < 0.2] = 0.0
+    if ids != "runs":
+        w[rng.random((b, l)) < 0.2] = 0.0
     if ids == "zero":
         w[:] = 0.0
-    return g, torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(w)
+    if ids == "nonfinite":
+        # bags 0-3 hold zero weights and inf, -inf, NaN; bag 1 only zero
+        # weights; bag 2 also an out-of-range id of weight 0 (dropped);
+        # bag 4 an inf with no zero weight; bag 5 zero weights, all finite
+        w[:6, 0] = 0.0
+        w[1] = 0.0
+        idx[2, 1], w[2, 1] = v + 2, 0.0
+        idx[3, -1] = idx[0, -1]        # a row of an inf bag named again
+        g[0, 1], g[1, 2], g[2, 3] = np.inf, np.nan, -np.inf
+        g[3, 0], g[3, d - 1] = np.nan, np.inf
+        w[4] = np.where(w[4] == 0, 1.5, w[4])
+        g[4, d // 2] = np.inf
+    return (torch.from_numpy(g).to(getattr(torch, dtype)),
+            torch.from_numpy(idx.astype(np.int32)), torch.from_numpy(w))
 
 
 def bag_backward_bound(g, idx, w, num_rows):
     """Per element of the table's gradient, what a float32 sum of its n
-    contributions in another order may differ by: n · 2^-23 · Σ|terms|
-    (and for a bfloat16 gradient, one bfloat16 ulp of the value more: the
-    float32 sums may round to either side of a bfloat16 boundary)."""
+    terms (every item of an id in range) in another order may differ by:
+    n · 2^-23 · Σ|terms| (and for a bfloat16 gradient, one bfloat16 ulp of
+    the value more: the float32 sums may round to either side of a
+    bfloat16 boundary)."""
     import torch
     from repro_torch.kernels.embedding_bag import embedding_bag_backward_ref
     mag = embedding_bag_backward_ref(g.float().abs(), idx, w.abs(), num_rows)
     ids = idx.long().reshape(-1)
-    keep = (ids >= -num_rows) & (ids < num_rows) & (w.reshape(-1) != 0)
+    keep = (ids >= -num_rows) & (ids < num_rows)
     rows = torch.where(ids < 0, ids + num_rows, ids)[keep]
     n = torch.bincount(rows, minlength=num_rows).to(torch.float32)
     return n[:, None] * 2.0 ** -23 * mag
 
 
 def bag_backward_close(got, want, bound) -> tuple:
-    """(max |got − want|, the bound there, ok) in float32."""
+    """(max |got − want| over the finite elements of want, the bound
+    there, ok) in float32: ok where got has NaN where want has, the same
+    inf where want has one, and each finite element within the bound (plus
+    one bfloat16 ulp of the value for a bfloat16 gradient)."""
     import torch
-    tol = bound
+    tol = bound.float()
     if got.dtype == torch.bfloat16:
         tol = tol + want.float().abs() * 2.0 ** -8
-    err = (got.float() - want.float()).abs()
+    got, want = got.float(), want.float()
+    fin, inf = torch.isfinite(want), torch.isinf(want)
+    ok = (torch.equal(torch.isnan(got), torch.isnan(want))
+          and torch.equal(got[inf], want[inf]))
+    err, tol = (got - want).abs()[fin], tol[fin]
     return (float(err.max()) if err.numel() else 0.0,
             float(tol.max()) if tol.numel() else 0.0,
-            bool((err <= tol).all()))
+            ok and bool((err <= tol).all()))
 
 
 def phase_bag_backward_small(dev) -> float:
+    """The backward kernel on the card against the plain model of its order
+    (``embedding_bag_backward_sorted_ref``), bit for bit with equal NaN
+    masks, twice (the same bits); and against the item-order plain version
+    within :func:`bag_backward_bound`, on the card and on the host.  On the
+    CPU the wrapper is the item-order plain version, which the sorted model
+    meets within the bound (and bit for bit on rows named at most PIECE
+    times: tests/test_torch_train_recsys.py)."""
     import torch
-    from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
-                                                   embedding_bag_backward_ref,
-                                                   embedding_bag_padded,
-                                                   kernel)
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag_backward, embedding_bag_backward_ref,
+        embedding_bag_backward_sorted_ref, embedding_bag_padded, kernel)
     cuda = torch.device(dev).type == "cuda"
     rows, worst = [], 0.0
     for case in BAG_BACKWARD_CASES:
@@ -2998,24 +3102,37 @@ def phase_bag_backward_small(dev) -> float:
         launched = kernel.backward_launches - before
         check(launched == int(cuda and b > 0),
               f"{name}: {launched} backward launches")
+        again = embedding_bag_backward(gd, i, ww, v)
+        check(same_bits(got, again), f"{name}: two calls differ")
+        sorted_ = embedding_bag_backward_sorted_ref(gd, i, ww, v).to(dt)
+        exact = same_bits(got, sorted_)
+        check(exact or not cuda, f"embedding_bag backward {name}: the "
+                                 f"kernel differs from its sorted model")
         want = embedding_bag_backward_ref(gd, i, ww, v).to(dt)
-        err, tol, ok = bag_backward_close(got, want, bound)
+        err, tol_d, ok = bag_backward_close(got, want, bound)
         err_h, tol_h, ok_h = bag_backward_close(got.cpu(), host, bound.cpu())
-        check(ok and ok_h, f"embedding_bag backward {name}: |Δ| {err} / "
-                           f"{err_h} beyond the bound {tol} / {tol_h}")
+        err_s, _, ok_s = bag_backward_close(sorted_.cpu(), host,
+                                            bound.cpu())
+        check(ok and ok_h and ok_s,
+              f"embedding_bag backward {name}: |Δ| {err} / {err_h} (sorted "
+              f"model {err_s}) beyond the bound {tol_d} / {tol_h}")
         check(got.dtype == dt and tuple(got.shape) == (v, d),
               f"{name}: gradient {got.dtype} {tuple(got.shape)}")
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite")
+        nonfinite = not bool(torch.isfinite(g).all())
+        check(nonfinite == bool(torch.isnan(got).any()),
+              f"{name}: NaN in the gradient: {bool(torch.isnan(got).any())}")
         worst = max(worst, err, err_h)
         rows.append({"case": name, "max_abs_err": max(err, err_h),
-                     "bound": max(tol, tol_h)})
+                     "bound": max(tol_d, tol_h), "sorted_model_bits": exact,
+                     "nan": int(torch.isnan(got).sum())})
     _sync(dev)
     emit("bag_backward_small", cases=rows, max_abs_err=worst,
-         tolerance="per element |Δ| ≤ n · 2^-23 · Σ|terms| over the row's "
-                   "n contributions (atomics add them in another order), "
-                   "plus one bfloat16 ulp of the value for a bfloat16 "
-                   "gradient; against the plain version on the card and on "
-                   "the host")
+         tolerance="bit for bit against the sorted model with equal NaN "
+                   "masks, and two calls equal, on the card; per element "
+                   "|Δ| ≤ n · 2^-23 · Σ|terms| over the row's n terms "
+                   "against the item-order plain version (plus one bfloat16 "
+                   "ulp of the value for a bfloat16 gradient), NaN and inf "
+                   "where it has them, on the card and on the host")
     return worst
 
 
@@ -3351,11 +3468,12 @@ def check_lookups(name, model, batch) -> list:
     """Each of one step's lookups (:func:`step_lookups`) through the
     forward kernel, bit for bit against its plain version, and its
     gradient through the backward kernel against its plain version within
-    :func:`bag_backward_bound`."""
+    :func:`bag_backward_bound` and, on the card, bit for bit against the
+    plain model of the kernel's order."""
     import torch
     from repro_torch.kernels.embedding_bag import (
         embedding_bag, embedding_bag_backward, embedding_bag_backward_ref,
-        embedding_bag_padded_ref)
+        embedding_bag_backward_sorted_ref, embedding_bag_padded_ref)
     rows = []
     for k, (t, i, w, g) in enumerate(step_lookups(name, model, batch)):
         v = t.shape[0]
@@ -3364,6 +3482,12 @@ def check_lookups(name, model, batch) -> list:
         check(fwd, f"{name} lookup {k}: the forward kernel differs from "
                    f"its plain version")
         got = embedding_bag_backward(g, i, w, v)
+        exact = None
+        if g.is_cuda:
+            exact = same_bits(got, embedding_bag_backward_sorted_ref(
+                g, i, w, v).to(got.dtype))
+            check(exact, f"{name} lookup {k}: the backward kernel differs "
+                         f"from its sorted model")
         want = embedding_bag_backward_ref(g, i, w, v).to(got.dtype)
         err, tol, ok = bag_backward_close(got, want,
                                           bag_backward_bound(g, i, w, v))
@@ -3371,6 +3495,7 @@ def check_lookups(name, model, batch) -> list:
                   f"its plain version, beyond {tol}")
         rows.append({"table": list(t.shape), "dtype": str(t.dtype),
                      "shape": list(i.shape), "forward_bit_for_bit": fwd,
+                     "backward_sorted_model_bits": exact,
                      "backward_max_abs_err": err, "backward_bound": tol})
         del got, want
         if g.is_cuda:
@@ -3538,21 +3663,84 @@ def bag_backward_bytes(g, ids, w):
             + 2 * rows * g.shape[1] * 4, rows)
 
 
+def bag_backward_kept(g, ids, w, v):
+    """The rows of the items the kernel sorts, in item order: an id in
+    range, with a weight other than 0 or a non-finite grad_out row."""
+    import torch
+    flat = ids.long().reshape(-1)
+    bag = torch.arange(flat.numel(), device=flat.device) // ids.shape[1]
+    bad = ~torch.isfinite(g).all(1)
+    keep = ((flat >= -v) & (flat < v)
+            & ((w.reshape(-1) != 0) | bad[bag]))
+    return torch.where(flat < 0, flat + v, flat)[keep]
+
+
+def bag_backward_stats(g, ids, w, v) -> dict:
+    """What the kernel's order makes of these inputs: the kept items, their
+    runs (one a distinct row), the long runs (more than PIECE items), the
+    pieces, the later pieces (rows of scratch) and the longest run."""
+    import torch
+    from repro_torch.kernels.embedding_bag import PIECE
+    counts = torch.unique(bag_backward_kept(g, ids, w, v),
+                          return_counts=True)[1]
+    pieces = (counts + PIECE - 1) // PIECE
+    return {"kept": int(counts.sum()), "runs": int(counts.numel()),
+            "long_runs": int((pieces > 1).sum()),
+            "pieces": int(pieces.sum()),
+            "scratch_rows": int((pieces - 1).sum()),
+            "longest_run": int(counts.max()) if counts.numel() else 0}
+
+
+# the backward's kernels, by the part of the work they do
+BACKWARD_PARTS = {"keys": ("keys",),
+                  "sort": ("sort_hist", "sort_scan", "sort_scatter"),
+                  "reduction": ("runs_count", "runs_write", "reduce"),
+                  "combine": ("combine",)}
+
+
+def backward_split(fn, g, ids, v) -> dict:
+    """The backward call's device time: every ``embedding_bag_backward_*``
+    kernel of a call summed, each kernel's own mean and each part's
+    (:data:`BACKWARD_PARTS`), from the profiler."""
+    import torch
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.embedding_bag import kernel
+    p = kernel.backward_plan(ids.numel(), v, g.shape[1], g.element_size(),
+                             g.data_ptr() % 16 == 0, sm_count(g.device))
+    per_call = {k: (p.passes if k.startswith("sort") else 1)
+                for part in BACKWARD_PARTS.values() for k in part}
+    ms = kernels_device_ms(lambda: (fn(), None)[1], kernel.BACKWARD,
+                           per_call)
+    return {"device_ms": ms["total"], "passes": p.passes,
+            "parts_ms": {part: sum(ms[k] for k in names)
+                         for part, names in BACKWARD_PARTS.items()},
+            "kernels_ms": {k: ms[k] for k in per_call}}
+
+
 def phase_bag_backward_deploy(dev, bw, flops, batch: int = None,
                               smoke: bool = False) -> dict:
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
-                                                   embedding_bag_backward_ref)
+    from repro_torch.kernels.embedding_bag import (
+        PIECE, embedding_bag_backward, embedding_bag_backward_ref,
+        embedding_bag_backward_sorted_ref)
     cases = bag_backward_deploy_cases(dev, batch, smoke)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = {}
 
     def held(case, g, ids, w, v):
+        # the sorted model bit for bit and two calls equal, then the
+        # item-order plain version within the bound
         got = embedding_bag_backward(g, ids, w, v)
+        check(same_bits(got, embedding_bag_backward(g, ids, w, v)),
+              f"bag_backward_deploy {case}: two calls differ")
+        check(same_bits(got, embedding_bag_backward_sorted_ref(g, ids, w,
+                                                               v)),
+              f"bag_backward_deploy {case}: the kernel differs from its "
+              f"sorted model")
         want = embedding_bag_backward_ref(g, ids, w, v)
-        bound = bag_backward_bound(g, ids, w, v)
-        err, tol, ok = bag_backward_close(got, want, bound)
+        err, tol, ok = bag_backward_close(got, want,
+                                          bag_backward_bound(g, ids, w, v))
         check(ok, f"bag_backward_deploy {case}: |Δ| {err} beyond {tol}")
         return err, tol
 
@@ -3564,11 +3752,11 @@ def phase_bag_backward_deploy(dev, bw, flops, batch: int = None,
                 "bytes" if by_bytes >= by_ops else "operations", nbytes,
                 distinct)
 
-    def device_ms_of(fn):
-        # each call's [V, D] gradient is dropped at once (the profiled
-        # window runs TIMED_LAUNCHES calls)
-        return kernel_device_ms(lambda: (fn(), None)[1],
-                                "embedding_bag_backward")
+    def sort_ms_of(g, ids, w, v):
+        # torch.sort(stable=True) of the kept items' rows, every device
+        # activity of the call
+        keys = bag_backward_kept(g, ids, w, v).to(torch.int32)
+        return all_device_ms(lambda: torch.sort(keys, stable=True))
 
     for case, (g, ids, w, v, uniform) in cases.items():
         err, tol = held(case, g, ids, w, v)
@@ -3587,34 +3775,49 @@ def phase_bag_backward_deploy(dev, bw, flops, batch: int = None,
             calls["kernel_uniform_ids"] = lambda: embedding_bag_backward(
                 g, uniform, w, v)
         ms, turns = time_in_turns(calls, flush=flush.zero_)
-        device_ms = device_ms_of(calls["kernel"])
+        split = backward_split(calls["kernel"], g, ids, v)
         plain_ms = time_cuda(lambda: embedding_bag_backward_ref(g, ids, w, v),
                              flush=flush.zero_)
         bound_ms, bound_by, nbytes, distinct = bound_of(g, ids, w)
         rows[case] = dict(
             card=nvidia_smi(), table=[v, g.shape[1]],
-            shape=list(ids.shape), distinct_rows=distinct,
-            max_abs_err=err, tolerance=tol, ms=ms["kernel"],
-            kernel_ms=ms["kernel"], kernel_device_ms=device_ms,
+            shape=list(ids.shape), distinct_rows=distinct, c=PIECE,
+            **bag_backward_stats(g, ids, w, v),
+            max_abs_err=err, tolerance=tol, sorted_model_bits=True,
+            ms=ms["kernel"], kernel_ms=ms["kernel"],
+            kernel_device_ms=split["device_ms"],
+            parts_ms=split["parts_ms"], kernels_ms=split["kernels_ms"],
+            sort_passes=split["passes"],
+            sort_ms=split["parts_ms"]["sort"],
+            library_sort_ms=sort_ms_of(g, ids, w, v),
             library_ms=ms["library"], turns_ms=turns,
             kernel_over_library=ms["kernel"] / ms["library"],
             library_call="torch.autograd.grad of F.embedding_bag(mode='sum', "
                          "per_sample_weights) (dense)",
+            library_sort="torch.sort(stable=True) of the kept items' int32 "
+                         "rows, every device activity of the call",
             library_max_abs_diff=lib_err, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by,
             bytes=nbytes, share_of_bound=bound_ms / ms["kernel"],
-            device_share_of_bound=bound_ms / device_ms,
+            device_share_of_bound=bound_ms / split["device_ms"],
             zero_fill_ms=1e3 * v * g.shape[1] * 4 / bw)
         if uniform is not None:
             # the same bags with uniform ids, timed in the same turns
             u_err, u_tol = held(case + "_uniform_ids", g, uniform, w, v)
             u_bound, u_by, u_bytes, u_distinct = bound_of(g, uniform, w)
+            u_split = backward_split(calls["kernel_uniform_ids"], g, uniform,
+                                     v)
             rows[case]["uniform_ids"] = dict(
-                distinct_rows=u_distinct, max_abs_err=u_err, tolerance=u_tol,
+                distinct_rows=u_distinct,
+                **bag_backward_stats(g, uniform, w, v),
+                max_abs_err=u_err, tolerance=u_tol,
                 kernel_ms=ms["kernel_uniform_ids"],
-                kernel_device_ms=device_ms_of(calls["kernel_uniform_ids"]),
+                kernel_device_ms=u_split["device_ms"],
+                parts_ms=u_split["parts_ms"],
                 bound_ms=u_bound, bound_by=u_by, bytes=u_bytes,
-                zipf_over_uniform=ms["kernel"] / ms["kernel_uniform_ids"])
+                zipf_over_uniform=ms["kernel"] / ms["kernel_uniform_ids"],
+                zipf_over_uniform_device=(split["device_ms"]
+                                          / u_split["device_ms"]))
         emit("bag_backward_deploy", case=case, **rows[case])
         del table, out
     del cases, flush
@@ -3789,9 +3992,16 @@ def main() -> int:
         "note": "the gradient of the forward kernel's function; the JAX "
                 "package has no backward kernel (jax.grad scatters through "
                 "jnp.take)",
-        "design": "a grid-stride walk over the B·L items, lanes in groups "
-                  "that hold a row's 16-byte vectors, one item a group; "
-                  "float32 atomicAdd into the zeroed [V, D] gradient",
+        "design": "a sorted, deterministic segmented reduction, one host "
+                  "call: keys (each item's row, or dropped; a bag's "
+                  "grad_out row checked once for its zero-weight items), "
+                  "an LSD radix sort of (row, item) written here (8 bits a "
+                  "pass, stable ranks by __match_any_sync, the first pass "
+                  "compacting), runs cut into pieces of at most c items "
+                  "added in item order by lane groups of a row's 16-byte "
+                  "vectors, a long run's pieces added in piece order; no "
+                  "float atomics",
+        "c": backs["dlrm"]["c"],
         "launches": sum(rec_train[a]["backward_launches"] for a in (
             "dlrm-rm2", "two-tower-retrieval")),
         "max_abs_err": max(back_err, *(r["max_abs_err"]
@@ -3804,14 +4014,18 @@ def main() -> int:
         "ms": backs["dlrm"]["kernel_ms"],
         "kernel_ms": backs["dlrm"]["kernel_ms"],
         "kernel_device_ms": backs["dlrm"]["kernel_device_ms"],
+        "parts_ms": backs["dlrm"]["parts_ms"],
+        "sort_ms": backs["dlrm"]["sort_ms"],
+        "library_sort_ms": backs["dlrm"]["library_sort_ms"],
         "plain_ms": backs["dlrm"]["plain_ms"],
         "library_ms": backs["dlrm"]["library_ms"],
         "bound_ms": backs["dlrm"]["bound_ms"],
         "bound_by": backs["dlrm"]["bound_by"],
         "shape": backs["dlrm"]["shape"], "table": backs["dlrm"]["table"],
         "two_tower_hist": {k: backs["two_tower_hist"][k] for k in (
-            "shape", "table", "kernel_ms", "kernel_device_ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "uniform_ids")},
+            "shape", "table", "kernel_ms", "kernel_device_ms", "parts_ms",
+            "sort_ms", "library_sort_ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "uniform_ids")},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

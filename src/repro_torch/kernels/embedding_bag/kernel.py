@@ -7,7 +7,9 @@ tensors it computes the plain version (:mod:`.ref`).  ``launches`` and
 ``backward_launches`` count kernel launches, and nothing else.
 
 The launch plans are :func:`plan` and :func:`backward_plan`, functions of
-the shapes, the alignment and the card's SM count alone.
+the shapes, the alignment and the card's SM count alone.  A backward call
+is one host call that launches all of its kernels (``backward_launches``
+counts it once).
 """
 
 import ctypes
@@ -18,7 +20,7 @@ import torch
 from repro_torch.device import sm_count
 from repro_torch.kernels import build
 
-from .ref import embedding_bag_backward_ref, embedding_bag_padded_ref
+from .ref import PIECE, embedding_bag_backward_ref, embedding_bag_padded_ref
 
 NAME = "embedding_bag"
 BACKWARD = "embedding_bag_backward"
@@ -28,7 +30,10 @@ ROWS = 4               # rows a group of lanes has in flight (kRows)
 WARP_ROWS = 2          # rows a warp has in flight, a bag a warp (kWarpRows)
 WARPS_PER_SM = 64      # warps the runs of bags are cut for, per SM (two
                        # waves or more at the grouped kernel's occupancy)
-BACKWARD_BLOCKS_PER_SM = 8   # the backward's grid cap (grid-stride walk)
+BACKWARD_BLOCKS_PER_SM = 8   # the backward's walks' grid cap
+SORT_BLOCKS_PER_SM = 2       # the backward's sort: blocks a SM, a chunk each
+SORT_BITS = 8                # bits a sort pass (kRadixBits)
+SORT_RADIX = 1 << SORT_BITS
 launches = 0
 backward_launches = 0
 
@@ -149,32 +154,72 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
 
 class BackwardPlan(NamedTuple):
     vec: int           # elements a load of grad_out: 16 bytes' worth, or 1
-    lanes: int         # lanes an item (a power of two, at most 32)
-    grid: int          # blocks of WARPS warps
+    lanes: int         # lanes a piece (a power of two, at most 32)
+    keys_grid: int     # blocks of the keys kernel (a grid-stride walk)
+    sort_grid: int     # blocks of the sort's and the runs' kernels
+    passes: int        # sort passes of SORT_BITS over the bits of V - 1
+    reduce_grid: int   # blocks of the reduction (a grid-stride walk)
+    combine_grid: int  # the combine's blocks in y, over the long runs (x:
+                       # ⌈vectors / WARPS⌉, a warp a vector of the row)
+    workspace: int     # 4-byte words of scratch the launch needs
 
 
-def backward_plan(n_items: int, d: int, elt: int, aligned: bool,
+def _up64(words: int) -> int:
+    return -(-words // 64) * 64
+
+
+def backward_workspace(n_items: int, sort_grid: int, d: int) -> int:
+    """The launch's scratch in 4-byte words, each part on 256 bytes (the
+    layout of ``embedding_bag_backward.cu``'s ``layout``): the sort's
+    double buffers of (row, item), its digit counts, the device counts,
+    the runs (start and length), the long runs (start, length, first
+    scratch row) and the later pieces' partials, at most ⌈n / PIECE⌉
+    rows of D floats (a run of n > PIECE items has ⌈n / PIECE⌉ − 1 later
+    pieces)."""
+    n = n_items
+    longs = n // (PIECE + 1) + 1
+    parts = [n] * 4 + [sort_grid * SORT_RADIX, SORT_RADIX, 4,
+                       3 * sort_grid, n, n, longs, longs, longs,
+                       -(-n // PIECE) * d]
+    return sum(_up64(w) for w in parts)
+
+
+def backward_plan(n_items: int, v: int, d: int, elt: int, aligned: bool,
                   sms: int) -> BackwardPlan:
-    """The backward's launch over ``n_items`` = B · L items and rows of D
-    elements of ``elt`` bytes (grad_out's type) on a card of ``sms`` SMs;
-    ``aligned``: grad_out starts on 16 bytes.  A row a multiple of 16
-    bytes takes 16-byte loads.  An item takes the fewest lanes (a power of
-    two, at most 32) that hold its row's vectors, 32 / lanes items a warp
-    at once; the grid covers every item once, at most
-    BACKWARD_BLOCKS_PER_SM blocks a SM, which walk the rest."""
+    """The backward's launch over ``n_items`` = B · L items into a table of
+    ``v`` rows of D elements of ``elt`` bytes (grad_out's type) on a card
+    of ``sms`` SMs; ``aligned``: grad_out starts on 16 bytes.  A row a
+    multiple of 16 bytes takes 16-byte loads.  A piece takes the fewest
+    lanes (a power of two, at most 32) that hold its row's vectors; the
+    combine a warp a vector of a long run's row.  The sort runs
+    SORT_BLOCKS_PER_SM blocks a SM, each a contiguous chunk of the items,
+    in ⌈bits(V − 1) / SORT_BITS⌉ passes (at least one: the first compacts
+    the dropped items out).  The walks are sized from the bound B · L
+    (every item its own run) and capped at BACKWARD_BLOCKS_PER_SM blocks
+    a SM; the counts they walk stay on the card."""
     vec = 16 // elt if aligned and (d * elt) % 16 == 0 else 1
     vectors = -(-d // vec)
     lanes = min(32, 1 << max(vectors - 1, 0).bit_length())
-    warps = -(-n_items // (32 // lanes))
-    grid = max(1, min(-(-warps // WARPS), sms * BACKWARD_BLOCKS_PER_SM))
-    return BackwardPlan(vec, lanes, grid)
+    cap = sms * BACKWARD_BLOCKS_PER_SM
+
+    def grid(groups: int, per_block: int) -> int:
+        return max(1, min(-(-groups // per_block), cap))
+    sort_grid = sms * SORT_BLOCKS_PER_SM
+    passes = max(1, -(-max(v - 1, 0).bit_length() // SORT_BITS))
+    per_block = WARPS * (32 // lanes)
+    return BackwardPlan(
+        vec, lanes, grid(n_items, 32 * WARPS), sort_grid, passes,
+        grid(n_items + -(-n_items // PIECE), per_block),
+        max(1, min(n_items // (PIECE + 1) + 1,
+                   cap // -(-vectors // WARPS))),
+        backward_workspace(n_items, sort_grid, d))
 
 
 def _backward_launcher():
     fn = build.load(BACKWARD).embedding_bag_backward_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 2
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -186,11 +231,15 @@ def embedding_bag_backward(grad_out: torch.Tensor, indices: torch.Tensor,
     a table of ``num_rows`` rows: ``grad[indices[b, i]] += weights[b, i] ·
     grad_out[b]``, accumulated in float32 and cast once to grad_out's type,
     which is the table's (float32 or bfloat16; float64 too on the CPU);
-    indices [B, L] int32 and weights
-    [B, L] float32, all contiguous on one device.  Ids in [-V, 0) wrap,
-    ids outside [-V, V) and items of weight 0 add nothing.  On the card
-    the rows are added with atomics, in an order that changes from run to
-    run (see ``csrc/embedding_bag_backward.cu`` for the tolerance)."""
+    indices [B, L] int32 and weights [B, L] float32, all contiguous on one
+    device.  Ids in [-V, 0) wrap; ids outside [-V, V) add nothing.  Every
+    other term is added, 0 · grad_out too (NaN where grad_out is inf or
+    NaN, as the reference's gradient).  On the card the terms are sorted
+    by row and added in a fixed order (see
+    ``csrc/embedding_bag_backward.cu``): two calls give the same bits, and
+    a row named at most PIECE times equals the item-order plain version;
+    :func:`.ref.embedding_bag_backward_sorted_ref` adds in the kernel's
+    order."""
     global backward_launches
     _check(grad_out, indices, weights, "grad_out")
     if grad_out.shape[0] != indices.shape[0]:
@@ -198,6 +247,12 @@ def embedding_bag_backward(grad_out: torch.Tensor, indices: torch.Tensor,
                          f"{indices.shape[0]}")
     if num_rows <= 0:
         raise ValueError("the table has no rows (V = 0)")
+    if num_rows >= 1 << 32:
+        raise ValueError(f"{num_rows} rows: the kernel's rows are 32-bit "
+                         f"keys (at most 2^32 - 1 rows)")
+    if indices.numel() >= 1 << 31:
+        raise ValueError(f"{indices.numel()} items: the kernel indexes "
+                         f"items with int32 (B · L < 2^31)")
     dtype = grad_out.dtype
     if grad_out.device.type == "cpu":
         return embedding_bag_backward_ref(grad_out, indices, weights,
@@ -210,15 +265,19 @@ def embedding_bag_backward(grad_out: torch.Tensor, indices: torch.Tensor,
                        device=grad_out.device)
     if b == 0 or l == 0 or d == 0:
         return grad.to(dtype)
-    p = backward_plan(b * l, d, grad_out.element_size(),
+    p = backward_plan(b * l, num_rows, d, grad_out.element_size(),
                       grad_out.data_ptr() % 16 == 0, sm_count(grad_out.device))
+    work = torch.empty(p.workspace, dtype=torch.int32,
+                       device=grad_out.device)
     launch = _backward_launcher()
     with torch.cuda.device(grad_out.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch(grad_out.data_ptr(), indices.data_ptr(),
-                     weights.data_ptr(), grad.data_ptr(), num_rows, b, l, d,
+                     weights.data_ptr(), grad.data_ptr(), work.data_ptr(),
+                     p.workspace, num_rows, b, l, d,
                      int(dtype == torch.bfloat16), int(p.vec > 1),
-                     p.lanes.bit_length() - 1, p.grid, stream)
+                     p.lanes.bit_length() - 1, p.keys_grid, p.sort_grid,
+                     p.passes, p.reduce_grid, p.combine_grid, stream)
     if err != 0:
         raise RuntimeError(f"{BACKWARD} kernel launch failed: CUDA error "
                            f"{err}")

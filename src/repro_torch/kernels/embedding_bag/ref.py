@@ -21,11 +21,23 @@ NaN ("fill" mode) — a NaN row stays NaN at weight 0, since 0 · NaN is NaN.
   respect to the table: ``grad[indices[b, i]] += weights[b, i] ·
   grad_out[b]``, the products in float32 (float64 for a float64 table),
   added in item order.  Ids in [-V, 0) wrap; ids outside [-V, V) read a NaN
-  row in the forward, and their gradient is dropped, as the gradient of
-  ``jnp.take``'s fill mode drops it.  Items of weight 0 add nothing.
+  row in the forward, and their gradient is dropped, whatever the weight,
+  as the gradient of ``jnp.take``'s fill mode drops it.  Every other term
+  is added, as the reference's take-plus-einsum gradient adds it: a term of
+  weight 0 is ±0, which leaves a sum that starts at +0 as it was, unless
+  grad_out[b] holds an inf or a NaN, where 0 · g is NaN;
+- :func:`embedding_bag_backward_sorted_ref` — the same terms added in the
+  CUDA kernel's order (``csrc/embedding_bag_backward.cu``): the items that
+  add something (an id in range, a weight other than 0 or a non-finite
+  grad_out row) sorted by row, stably; each row's run cut into pieces of at
+  most PIECE items, each added in item order from +0; the pieces added in
+  piece order.  A row named at most PIECE times equals the item-order
+  version bit for bit.
 """
 
 import torch
+
+PIECE = 32   # items a piece of a row's run (the kernel's kPiece)
 
 
 def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -85,11 +97,60 @@ def embedding_bag_backward_ref(grad_out: torch.Tensor, indices: torch.Tensor,
         else torch.float32
     ids = indices.long().reshape(-1)
     w = weights.to(acc_t).reshape(-1)
-    keep = (ids >= -num_rows) & (ids < num_rows) & (w != 0)
+    keep = (ids >= -num_rows) & (ids < num_rows)
     rows = torch.where(ids < 0, ids + num_rows, ids)[keep]
     l = indices.shape[1]
     bag = torch.arange(ids.numel(), device=ids.device)[keep] // max(l, 1)
     grad = torch.zeros((num_rows, grad_out.shape[1]), dtype=acc_t,
                        device=grad_out.device)
     grad.index_add_(0, rows, w[keep, None] * grad_out.to(acc_t)[bag])
+    return grad
+
+
+def embedding_bag_backward_sorted_ref(grad_out: torch.Tensor,
+                                      indices: torch.Tensor,
+                                      weights: torch.Tensor,
+                                      num_rows: int) -> torch.Tensor:
+    """grad_out [B, D]; indices [B, L]; weights [B, L] float32 → the
+    table's gradient [num_rows, D] in float32 (float64 for a float64
+    grad_out), in the kernel's order: the terms sorted by row, stably,
+    each row's pieces of at most PIECE items added in item order from +0,
+    then the pieces added in piece order."""
+    acc_t = torch.float64 if grad_out.dtype == torch.float64 \
+        else torch.float32
+    dev = grad_out.device
+    g = grad_out.to(acc_t)
+    ids = indices.long().reshape(-1)
+    w = weights.to(acc_t).reshape(-1)
+    bag = torch.arange(ids.numel(), device=dev) // max(indices.shape[1], 1)
+    bad = ~torch.isfinite(g).all(1)
+    keep = (ids >= -num_rows) & (ids < num_rows) & ((w != 0) | bad[bag])
+    items = torch.nonzero(keep).reshape(-1)
+    rows, order = torch.sort(torch.where(ids < 0, ids + num_rows,
+                                         ids)[items], stable=True)
+    items = items[order]
+    grad = torch.zeros((num_rows, g.shape[1]), dtype=acc_t, device=dev)
+    n = items.numel()
+    if n == 0:
+        return grad
+    terms = w[items, None] * g[bag[items]]
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = rows[1:] != rows[:-1]
+    starts = torch.nonzero(head).reshape(-1)
+    run = torch.cumsum(head, 0) - 1
+    at = torch.arange(n, device=dev) - starts[run]   # the item's place in
+    k = at % PIECE                                   # its run, its piece
+    first = k == 0
+    piece = torch.cumsum(first, 0) - 1
+    partial = torch.zeros((int(first.sum()), g.shape[1]), dtype=acc_t,
+                          device=dev)
+    for i in range(PIECE):                   # the i-th item of each piece
+        sel = k == i
+        partial[piece[sel]] = partial[piece[sel]] + terms[sel]
+    j, piece_run = (at // PIECE)[first], run[first]
+    acc = partial[j == 0].clone()            # each run's first piece
+    for i in range(1, int(j.max()) + 1):     # then its later pieces
+        sel = j == i
+        acc[piece_run[sel]] = acc[piece_run[sel]] + partial[sel]
+    grad[rows[starts]] = acc
     return grad

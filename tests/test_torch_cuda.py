@@ -7,6 +7,7 @@ This file imports neither JAX nor the reference package, so it runs on a
 machine with PyTorch alone.
 """
 
+import ctypes
 import os
 import sys
 from pathlib import Path
@@ -482,11 +483,13 @@ def test_recsys_on_card_runs_the_kernel_only(cuda_device, monkeypatch, name,
 @pytest.mark.parametrize("case", chip_smoke.BAG_BACKWARD_CASES,
                          ids=[c[0] for c in chip_smoke.BAG_BACKWARD_CASES])
 def test_embedding_bag_backward_equals_plain(cuda_device, case):
-    """The cases of ``chip_smoke.py``'s ``bag_backward_small``: within
-    n · 2^-23 · Σ|terms| a element (atomics add in another order; plus a
-    bfloat16 ulp for bfloat16) of the plain version, one launch a call."""
+    """The cases of ``chip_smoke.py``'s ``bag_backward_small``: bit for bit
+    (NaN masks equal) against the plain model of the kernel's order, and
+    within n · 2^-23 · Σ|terms| an element (plus a bfloat16 ulp for
+    bfloat16) of the item-order plain version, one launch a call."""
     from repro_torch.kernels.embedding_bag import (
-        embedding_bag_backward, embedding_bag_backward_ref)
+        embedding_bag_backward, embedding_bag_backward_ref,
+        embedding_bag_backward_sorted_ref)
     name, v, d, b, l, dtype = case[:6]
     g, idx, w = chip_smoke.bag_backward_case(*case)
     dt = getattr(torch, dtype)
@@ -494,12 +497,72 @@ def test_embedding_bag_backward_equals_plain(cuda_device, case):
     bound = chip_smoke.bag_backward_bound(g, idx, w, v)
     gd = (chip_smoke.off_16(g, cuda_device)
           if name == "grad_out_off_16_bytes" else g.to(cuda_device))
+    i, ww = idx.to(cuda_device), w.to(cuda_device)
     before = bag_kernel.backward_launches
-    got = embedding_bag_backward(gd, idx.to(cuda_device), w.to(cuda_device),
-                                 v)
+    got = embedding_bag_backward(gd, i, ww, v)
     assert bag_kernel.backward_launches == before + int(b > 0)
     assert got.dtype == dt and got.shape == (v, d)
+    assert chip_smoke.same_bits(
+        got, embedding_bag_backward_sorted_ref(gd, i, ww, v).to(dt))
     assert chip_smoke.bag_backward_close(got.cpu(), host, bound)[2]
+
+
+@pytest.mark.parametrize("case", [c for c in chip_smoke.BAG_BACKWARD_CASES
+                                  if c[6] in ("hot", "runs", "dup")],
+                         ids=lambda c: c[0])
+def test_embedding_bag_backward_same_bits_twice(cuda_device, case):
+    """Two calls on the same inputs give the same bits, on two streams
+    too: the sum order depends on the inputs alone."""
+    from repro_torch.kernels.embedding_bag import embedding_bag_backward
+    v = case[1]
+    g, idx, w = (x.to(cuda_device) for x in chip_smoke.bag_backward_case(
+        *case))
+    first = embedding_bag_backward(g, idx, w, v)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        second = embedding_bag_backward(g, idx, w, v)
+    torch.cuda.current_stream().wait_stream(side)
+    assert chip_smoke.same_bits(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_embedding_bag_backward_nonfinite_zero_weight_items(cuda_device,
+                                                            dtype):
+    """Fault (s): a zero-weight item whose bag's grad_out row holds an inf
+    or a NaN puts NaN in its row exactly where that row is non-finite, as
+    the plain version does; one of a finite row, or of an id out of range,
+    adds nothing."""
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag_backward, embedding_bag_backward_ref)
+    g = torch.tensor([[np.inf, 1.0, 2.0, -1.0], [1.0, np.nan, 3.0, 4.0],
+                      [5.0, 6.0, 7.0, 8.0]]).to(dtype)
+    ids = torch.tensor([[1, 0], [2, 9], [3, 0]], dtype=torch.int32)
+    w = torch.tensor([[1.0, 0.0], [0.0, 0.0], [0.0, 2.0]])
+    got = embedding_bag_backward(g.to(cuda_device), ids.to(cuda_device),
+                                 w.to(cuda_device), 5).cpu()
+    want = embedding_bag_backward_ref(g, ids, w, 5).to(dtype)
+    assert chip_smoke.same_bits(got, want)
+    assert torch.isnan(got[0]).tolist() == [True, False, False, False]
+    assert torch.isnan(got[2]).tolist() == [False, True, False, False]
+    assert not torch.isnan(got[[1, 3, 4]]).any()
+
+
+def test_embedding_bag_backward_library_constants(cuda_device):
+    """The library's warps a block, piece length and sort digits are the
+    plan's, and its workspace formula is ``backward_workspace``'s."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.embedding_bag import PIECE
+    lib = build.load(bag_kernel.BACKWARD)
+    assert lib.embedding_bag_backward_warps() == bag_kernel.WARPS
+    assert lib.embedding_bag_backward_piece() == PIECE
+    assert lib.embedding_bag_backward_radix_bits() == bag_kernel.SORT_BITS
+    words = lib.embedding_bag_backward_workspace_words
+    words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    words.restype = ctypes.c_longlong
+    for n, grid, d in [(1, 2, 1), (1703936, 264, 64), (524288, 264, 256),
+                       (33, 7, 10)]:
+        assert words(n, grid, d) == bag_kernel.backward_workspace(n, grid, d)
 
 
 def test_backward_launches_once_per_lookup(cuda_device, monkeypatch):

@@ -3,7 +3,10 @@ five losses and their gradients at the smoke configs (two-tower with and
 without ``loss_chunk``), and ``embedding_bag``'s backward — the plain
 version and the autograd Function every lookup goes through — against
 ``jax.grad`` of ``jnp.take`` and ``recsys._embed_bag``, wrapped and
-dropped ids included.
+dropped ids included, and non-finite grad_out rows at zero-weight items
+against ``jax.vjp`` bit for bit (fault (s)); the plain model of the card
+kernel's order (``embedding_bag_backward_sorted_ref``) against the item
+order, and the backward's launch plan.
 
 Tolerance: the reference's float32 result against its float64 result
 (``jax.enable_x64``, the weights widened); the port's float32 must lie
@@ -32,14 +35,15 @@ torch = pytest.importorskip("torch")
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+import chip_smoke  # noqa: E402  (the repository root's card script)
 from repro.configs import recsys_family as JF  # noqa: E402
 from repro.models import recsys as JR  # noqa: E402
 from repro_torch.configs import recsys_family as TF  # noqa: E402
 from repro_torch.convert import model_tree, recsys_from_jax  # noqa: E402
 from repro_torch.dist.checkpoint import tree_leaves  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
-    embedding_bag_backward, embedding_bag_backward_ref,
-    embedding_bag_padded)
+    PIECE, embedding_bag_backward, embedding_bag_backward_ref,
+    embedding_bag_backward_sorted_ref, embedding_bag_padded)
 from repro_torch.kernels.embedding_bag import kernel as bag_kernel  # noqa
 from repro_torch.models import recsys as TR  # noqa: E402
 
@@ -246,28 +250,156 @@ def test_backward_wrapper_checks():
                                   5).abs().sum() == 0
 
 
+@pytest.mark.parametrize("bad", [np.inf, -np.inf, np.nan])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_backward_ref_nonfinite_zero_weights_match_jax_vjp(bad, seed):
+    """Fault (s): the reference's gradient adds 0 · g, NaN where g is inf
+    or NaN.  Bags with a zero-weight item and a non-finite row (one all
+    zero weights), one whose zero-weight item has an id out of range
+    (dropped, whatever its weight), one with a zero weight and a finite
+    row, one with a non-finite row and no zero weight: the plain version
+    equals ``jax.vjp`` of ``_embed_bag`` bit for bit, NaN masks equal."""
+    rng = np.random.default_rng(seed)
+    v, d, b, l = 12, 6, 10, 4
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    ids = rng.integers(-v, v, (b, l)).astype(np.int32)
+    w = rng.standard_normal((b, l)).astype(np.float32)
+    w[0, 1] = 0.0
+    w[1, :] = 0.0
+    w[2, 0], ids[2, 0] = 0.0, v + 3
+    w[3, 2] = 0.0
+    w[4] = np.where(w[4] == 0, 1.0, w[4])
+    g = rng.standard_normal((b, d)).astype(np.float32)
+    g[0, 1] = g[1, 4] = g[2, 0] = g[4, 3] = bad
+    _, vjp = jax.vjp(lambda t: JR._embed_bag(t, jnp.asarray(ids),
+                                             jnp.asarray(w)),
+                     jnp.asarray(table))
+    want = torch.from_numpy(np.array(vjp(jnp.asarray(g))[0]))
+    got = embedding_bag_backward_ref(torch.from_numpy(g),
+                                     torch.from_numpy(ids),
+                                     torch.from_numpy(w), v)
+    assert torch.isnan(want).any()
+    assert chip_smoke.same_bits(got, want)
+    # the item of weight 0 at an id out of range adds nothing: the same
+    # inputs without it give the same gradient
+    w2 = w.copy()
+    w2[2, 0] = 5.0
+    assert chip_smoke.same_bits(got, embedding_bag_backward_ref(
+        torch.from_numpy(g), torch.from_numpy(ids), torch.from_numpy(w2), v))
+
+
+@pytest.mark.parametrize("case", chip_smoke.BAG_BACKWARD_CASES,
+                         ids=[c[0] for c in chip_smoke.BAG_BACKWARD_CASES])
+def test_sorted_model_matches_item_order(case):
+    """The plain model of the kernel's order against the item-order plain
+    version: bit for bit (NaN masks equal) on each row whose kept items
+    number at most PIECE, within ``bag_backward_bound`` elsewhere, and the
+    same bits on a second call."""
+    v = case[1]
+    g, idx, w = chip_smoke.bag_backward_case(*case)
+    got = embedding_bag_backward_sorted_ref(g, idx, w, v)
+    want = embedding_bag_backward_ref(g, idx, w, v)
+    assert chip_smoke.same_bits(got, embedding_bag_backward_sorted_ref(
+        g, idx, w, v))
+    assert got.dtype == want.dtype == torch.float32
+    named = torch.bincount(chip_smoke.bag_backward_kept(g, idx, w, v),
+                           minlength=v)
+    short = named <= PIECE
+    assert chip_smoke.same_bits(got[short], want[short])
+    bound = chip_smoke.bag_backward_bound(g, idx, w, v)
+    assert chip_smoke.bag_backward_close(got, want, bound)[2]
+    if case[6] == "runs":        # rows named PIECE, PIECE + 1, 2 PIECE + 1
+        assert named[:3].tolist() == [PIECE, PIECE + 1, 2 * PIECE + 1]
+    if case[6] == "hot":
+        assert int(named.max()) > 4 * PIECE
+
+
+def test_sorted_model_order_is_pieces_then_partials():
+    """One row named 2 · PIECE + 1 times: the model adds the items of each
+    piece of PIECE in order from +0, then the pieces in order — a float32
+    sum that differs from the item order's, which it equals in float64."""
+    n = 2 * PIECE + 1
+    rng = np.random.default_rng(7)
+    g = torch.from_numpy((rng.standard_normal((n, 3)) * 10.0 ** rng.integers(
+        -4, 5, (n, 1))).astype(np.float32))
+    idx = torch.zeros((n, 1), dtype=torch.int32)
+    w = torch.ones((n, 1))
+    got = embedding_bag_backward_sorted_ref(g, idx, w, 1)[0]
+    pieces = [torch.zeros(3) for _ in range(3)]
+    for k in range(n):
+        pieces[k // PIECE] = pieces[k // PIECE] + g[k]
+    want = (pieces[0] + pieces[1]) + pieces[2]
+    assert torch.equal(got, want)
+    item = embedding_bag_backward_ref(g, idx, w, 1)[0]
+    assert not torch.equal(got, item)
+    assert torch.allclose(got.double(), g.double().sum(0), rtol=1e-5,
+                          atol=1e-3)
+
+
 @pytest.mark.parametrize("n,d,elt,aligned", [
     (65536 * 26, 64, 4, True), (65536 * 8, 256, 4, True), (10, 10, 4, True),
     (3, 64, 2, True), (100, 64, 4, False), (0, 16, 4, True),
     (7, 1, 4, True), (5, 1000, 2, True)])
 def test_backward_plan_covers_every_item(n, d, elt, aligned):
-    p = bag_kernel.backward_plan(n, d, elt, aligned, 132)
-    vec = 16 // elt if aligned and d * elt % 16 == 0 else 1
-    assert p.vec == vec
-    vectors = -(-d // vec)
-    assert p.lanes & (p.lanes - 1) == 0 and 1 <= p.lanes <= 32
-    assert p.lanes >= min(vectors, 32)
-    assert p.lanes == 32 or p.lanes < 2 * vectors
-    assert 1 <= p.grid <= 132 * bag_kernel.BACKWARD_BLOCKS_PER_SM
-    # a grid-stride walk: each item has exactly one (warp, group) slot
-    groups = 32 // p.lanes * bag_kernel.WARPS * p.grid
-    assert groups > 0
+    """The backward's plan at several table sizes: 16-byte loads where the
+    row allows, the fewest lanes that hold a row, the sort passes that
+    cover the bits of V − 1, every item in exactly one sort block's chunk
+    (the kernels' ``chunk_of``), walks that reach every item and every
+    piece within the grid cap, and the workspace the layout needs."""
+    sms = 132
+    for v in (1, 2, 257, 10 ** 6, 26 * 10 ** 6, 2 ** 32 - 1):
+        p = bag_kernel.backward_plan(n, v, d, elt, aligned, sms)
+        vec = 16 // elt if aligned and d * elt % 16 == 0 else 1
+        assert p.vec == vec
+        vectors = -(-d // vec)
+        assert p.lanes & (p.lanes - 1) == 0 and 1 <= p.lanes <= 32
+        assert p.lanes >= min(vectors, 32)
+        assert p.lanes == 32 or p.lanes < 2 * vectors
+        bits = (v - 1).bit_length()
+        assert p.passes * bag_kernel.SORT_BITS >= bits
+        assert p.passes == max(1, -(-bits // bag_kernel.SORT_BITS)) <= 4
+        assert p.sort_grid == sms * bag_kernel.SORT_BLOCKS_PER_SM
+        chunk = -(-n // p.sort_grid)
+        spans = [(min(n, b * chunk), min(n, b * chunk + chunk))
+                 for b in range(p.sort_grid)]
+        assert sum(hi - lo for lo, hi in spans) == n
+        assert all(spans[b][1] == spans[b + 1][0]
+                   for b in range(p.sort_grid - 1))
+        cap = sms * bag_kernel.BACKWARD_BLOCKS_PER_SM
+        per_block = bag_kernel.WARPS * 32 // p.lanes
+        for grid, work, per in (
+                (p.keys_grid, n, 32 * bag_kernel.WARPS),
+                (p.reduce_grid, n + -(-n // PIECE), per_block)):
+            assert 1 <= grid <= cap
+            assert grid == cap or grid * per >= work
+        # the combine: x = ⌈vectors / WARPS⌉ blocks hold a warp a vector
+        x = -(-vectors // bag_kernel.WARPS)
+        assert 1 <= p.combine_grid * x <= max(cap, x)
+        assert (p.combine_grid >= n // (PIECE + 1) + 1
+                or p.combine_grid * x > cap - x)
+        assert p.workspace == bag_kernel.backward_workspace(n, p.sort_grid,
+                                                            d)
+        assert p.workspace >= 6 * n + -(-n // PIECE) * d
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_backward_scratch_and_long_runs_fit_the_workspace(seed):
+    """Whatever the run lengths, the later pieces fit ⌈n / PIECE⌉ rows of
+    scratch and the long runs n // (PIECE + 1) + 1 entries: the bounds the
+    workspace is laid out by."""
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 5000))
+    cuts = np.sort(rng.choice(np.arange(1, n), size=min(n - 1, int(
+        rng.integers(0, 60))), replace=False)) if n > 1 else []
+    lens = np.diff(np.concatenate([[0], cuts, [n]])).astype(np.int64)
+    pieces = -(-lens // PIECE)
+    assert (pieces - 1).sum() <= -(-n // PIECE)
+    assert (pieces > 1).sum() <= n // (PIECE + 1) + 1
 
 
 # ------------------------------------------------------------------ #
 # chip_smoke.py's training phases, on the CPU
 # ------------------------------------------------------------------ #
-import chip_smoke  # noqa: E402  (the repository root's card script)
 
 
 def test_chip_smoke_bag_backward_small_on_the_cpu():
