@@ -1,10 +1,10 @@
-"""GQA transformer LM, dense, in PyTorch: the JAX package's
+"""GQA transformer LM (dense and MoE) in PyTorch: the JAX package's
 ``repro.models.transformer`` (forward and loss for training; prefill and
 decode for serving).
 
 Covers qwen2.5 / yi / internlm2 (dense GQA, optional QKV bias, optional
-QK-norm).  The MoE configurations (qwen3-moe, qwen2-moe) need
-``moe_block``, which is not ported yet: building their model raises.
+QK-norm) and qwen3-moe / qwen2-moe (top-k routed experts with a capacity,
+optional shared expert): :func:`moe_block` in place of the SwiGLU MLP.
 
 A model is a :class:`Transformer` module holding one :class:`DecoderLayer`
 per layer (the JAX package stacks layer leaves along [L] and scans; eager
@@ -30,7 +30,15 @@ Where a line-by-line port goes wrong, and what this one does:
   Qwen2.5-14B), where JAX returns a new one;
 - the reference's init takes each stacked weight's fan-in from its layer
   axis, so its scale is 1/√L; :func:`init_params` draws the same
-  distribution, one layer at a time.
+  distribution, one layer at a time;
+- the reference fills each expert's token buffer with one scatter on
+  duplicate indices: a token past its expert's capacity writes the empty
+  sentinel into the expert's last slot, and on the CPU the update with
+  the largest flat index ``t·K + k`` wins, so a token kept in that slot
+  can lose its expert's output.  :func:`moe_dispatch` resolves each
+  slot's winner by that rule with an integer ``amax`` (a scatter on
+  duplicate indices leaves the winner undefined on CUDA), so the
+  dispatch is the same on either device and equal to the reference's.
 """
 
 from __future__ import annotations
@@ -40,9 +48,11 @@ from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.vectorized import stable_topk
 from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
 
 from .layers import (apply_rope, causal_gqa_attention,
@@ -130,8 +140,18 @@ def layer_shapes(cfg: TransformerConfig) -> Dict[str, tuple]:
         shapes.update(bq=(h * hd,), bk=(hkv * hd,), bv=(hkv * hd,))
     if cfg.qk_norm:
         shapes.update(q_norm=(hd,), k_norm=(hd,))
-    shapes.update(w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff),
-                  w_down=(cfg.d_ff, d))
+    m = cfg.moe
+    if m is None:
+        shapes.update(w_gate=(d, cfg.d_ff), w_up=(d, cfg.d_ff),
+                      w_down=(cfg.d_ff, d))
+        return shapes
+    e, f = m.n_experts, m.d_expert_ff
+    shapes.update(router=(d, e), e_gate=(e, d, f), e_up=(e, d, f),
+                  e_down=(e, f, d))
+    if m.n_shared:
+        fs = m.d_shared_ff
+        shapes.update(s_gate=(d, fs), s_up=(d, fs), s_down=(fs, d),
+                      s_gate_proj=(d, 1))
     return shapes
 
 
@@ -165,11 +185,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, device=None):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name} is a mixture-of-experts configuration: "
-                f"moe_block is not ported yet (the MoE slice of the port, "
-                f"see ROADMAP.md); it is never run as a dense model")
         self.cfg = cfg
         dt = cfg.torch_dtype
         self.embed = _param((cfg.vocab, cfg.d_model), dt, device)
@@ -203,10 +218,11 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     """A model with random weights drawn from ``generator`` (which must
     live on ``device``), with the JAX package's distribution: norms 1,
     biases 0, the embedding N(0, 0.02²), the LM head N(0, 1/d_model), and
-    every stacked layer weight N(0, 1/n_layers) — the reference takes the
-    fan-in of a stacked ``[L, in, out]`` leaf from its first axis.  Draws
-    one layer at a time in float32, so no float32 copy of a stacked weight
-    is ever held.  The numbers differ from the JAX init's (another
+    every stacked layer weight N(0, 1/n_layers), the MoE router, experts
+    and shared-expert gate included — the reference takes the fan-in of a
+    stacked ``[L, ...]`` leaf from its first axis.  Draws one layer at a
+    time in float32, so no float32 copy of a stacked weight is ever
+    held.  The numbers differ from the JAX init's (another
     generator); the reference also draws embedding and LM head from one
     key, this draws them independently."""
     model = Transformer(cfg, device)
@@ -254,9 +270,102 @@ def _qkv(cfg: TransformerConfig, lp: Mapping[str, torch.Tensor],
     return q, k, v
 
 
-def _mlp(x: torch.Tensor, lp: Mapping[str, torch.Tensor]) -> torch.Tensor:
+# --------------------------------------------------------------------- #
+# MoE dispatch (the reference's gather formulation)
+# --------------------------------------------------------------------- #
+def capacity(t: int, m: MoEConfig) -> int:
+    """Slots an expert has for ``t`` tokens: the reference's expression,
+    in Python floats (integer arithmetic rounds otherwise where
+    T·K/E·capacity_factor lands near an integer)."""
+    return max(int(np.ceil(t * m.top_k / m.n_experts * m.capacity_factor)), 1)
+
+
+def moe_dispatch(probs: torch.Tensor, m: MoEConfig,
+                 top_e: Optional[torch.Tensor] = None):
+    """The integer half of :func:`moe_block`: router probabilities
+    ``probs`` [T, E] (float32) → (``top_p`` [T, K] float32, ``top_e``
+    [T, K], ``pos`` [T, K], ``keep`` [T, K] bool, ``idx_buf`` [E, C]).
+
+    ``top_e`` are the K most probable experts, ties to the lower index
+    (``lax.top_k``), unless given (another run's routing, which a
+    reference replay keeps); ``top_p`` their probabilities, divided by
+    their sum (added in slot order, as XLA does) where
+    ``router_norm_topk`` is set.
+    Positions are slot-major: assignment (t, k) on expert e sits after
+    every assignment to e of slots 0..k-1 and of the tokens before t in
+    slot k.  ``keep = pos < C``.  ``idx_buf[e, c]`` holds the token that
+    expert e computes in slot c, or the sentinel T: of the assignments
+    that write the slot (the kept one at c, and every dropped one on e at
+    c = C-1) the one with the largest flat index t·K + k wins, and a
+    dropped winner leaves the sentinel — the reference's scatter on the
+    CPU (fault (t)).  All integer work, with no host sync: the same bits
+    on the card and on the host.
+    """
+    t, e = probs.shape
+    k = m.top_k
+    c = capacity(t, m)
+    if top_e is None:
+        top_p, top_e = stable_topk(probs, k)
+    else:
+        top_p = probs.gather(1, top_e)
+    if m.router_norm_topk:
+        total = top_p[:, 0]
+        for i in range(1, k):
+            total = total + top_p[:, i]
+        top_p = top_p / torch.clamp(total, min=1e-9)[:, None]
+    # slot-major one-hot [K·T, E]; its running count is each position
+    slots = top_e.t().reshape(-1)
+    onehot = (slots[:, None] == torch.arange(e, device=probs.device)
+              ).to(torch.int32)
+    pos = (onehot.cumsum(0).gather(1, slots[:, None])[:, 0] - 1
+           ).view(k, t).t()
+    keep = pos < c
+    slot = top_e * c + torch.where(keep, pos, c - 1)
+    flat = torch.arange(t * k, device=probs.device)
+    win = torch.full((e * c,), -1, dtype=torch.int64, device=probs.device)
+    win.scatter_reduce_(0, slot.reshape(-1), flat, "amax")
+    won = (win >= 0) & keep.reshape(-1)[win.clamp(min=0)]
+    idx_buf = torch.where(won, win // k, t).view(e, c)
+    return top_p, top_e, pos, keep, idx_buf
+
+
+def moe_block(x: torch.Tensor, lp: Mapping[str, torch.Tensor],
+              cfg: TransformerConfig) -> torch.Tensor:
+    """x [T, D] (token-major) → [T, D], the reference's ``moe_block``.
+
+    The router runs in float32.  Every expert computes its [C, D] buffer
+    (empty slots hold a zero row); each (t, k) gathers its slot's output
+    and is weighted by ``top_p · keep``, so a dropped or overwritten
+    assignment adds a zero, and a non-finite expert output reaches the
+    tokens that gather it, as in the reference.  The shared expert
+    (qwen2-moe) is gated by a float32 sigmoid."""
+    m = cfg.moe
+    t, d = x.shape
+    probs = torch.softmax(torch.matmul(x.float(), lp["router"].float()),
+                          dim=-1)
+    top_p, top_e, pos, keep, idx_buf = moe_dispatch(probs, m)
+    c = idx_buf.shape[1]
+    xe = torch.cat([x, x.new_zeros((1, d))])[idx_buf]        # [E, C, D]
+    h = F.silu(torch.bmm(xe, lp["e_gate"])) * torch.bmm(xe, lp["e_up"])
+    ye = torch.bmm(h, lp["e_down"])                           # [E, C, D]
+    y_slots = ye[top_e, torch.where(keep, pos, c - 1)]        # [T, K, D]
+    w = (top_p * keep).to(ye.dtype)
+    y = torch.bmm(w[:, None, :], y_slots)[:, 0]
+    if m.n_shared:
+        g = torch.sigmoid(torch.matmul(x.float(),
+                                       lp["s_gate_proj"].float()))
+        y = y + g.to(x.dtype) * swiglu(x, lp["s_gate"], lp["s_up"],
+                                       lp["s_down"])
+    return y.to(x.dtype)
+
+
+def _mlp(cfg: TransformerConfig, x: torch.Tensor,
+         lp: Mapping[str, torch.Tensor]) -> torch.Tensor:
     xn = rms_norm(x, lp["mlp_norm"])
-    return x + swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"])
+    if cfg.moe is None:
+        return x + swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"])
+    b, s, d = xn.shape
+    return x + moe_block(xn.reshape(b * s, d), lp, cfg).reshape(b, s, d)
 
 
 def _layer(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
@@ -276,7 +385,7 @@ def _layer(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
                                             kv_chunk=kv_chunk)
     else:
         attn = causal_gqa_attention(q, k, v)
-    return _mlp(x + torch.matmul(attn.reshape(b, s, -1), lp["wo"]), lp)
+    return _mlp(cfg, x + torch.matmul(attn.reshape(b, s, -1), lp["wo"]), lp)
 
 
 def _layer_remat(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
@@ -333,24 +442,34 @@ def prefill(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
 # decode path: one token in, KV cache of seq_len
 # --------------------------------------------------------------------- #
 def init_cache(cfg: TransformerConfig, batch: int, seq_len: int,
-               device=None) -> Dict[str, torch.Tensor]:
+               device=None, dtype: Optional[torch.dtype] = None
+               ) -> Dict[str, torch.Tensor]:
+    """An empty KV cache in the model's dtype, or in ``dtype`` for a
+    :func:`decode_step` run with widened weights."""
     shape = (cfg.n_layers, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+    dtype = dtype or cfg.torch_dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
             "length": torch.zeros((batch,), dtype=torch.int32,
                                   device=device)}
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, dtype: Optional[torch.dtype] = None):
     """tokens [B] (one new token per sequence) → (logits [B, V], cache).
 
     Updates ``cache`` in place and returns it: each layer's new K and V
     are written at position ``length`` (rows whose ``length`` is at or past
     the cache's end keep their old values, as JAX's dropped write), and
     ``length`` grows by one for every row.  Attention runs through the
-    ``gqa_decode`` kernel wrapper, once per layer.
+    ``gqa_decode`` kernel wrapper, once per layer.  An MoE layer routes
+    the step's B tokens together (T = B, so the capacity is that of B
+    tokens).
+
+    With ``dtype`` (a float32 reference run of a bfloat16 model, against
+    a cache of that dtype), every weight is widened to it just before use,
+    one layer at a time, as :func:`forward` does; serving never passes it.
     """
     cfg = model.cfg
     b = tokens.shape[0]
@@ -367,8 +486,10 @@ def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
     dropped = (length >= s_cache)[:, None]
     attend = length + 1
     x = model.embed[tokens][:, None, :]                     # [B, 1, D]
+    if dtype is not None:
+        x = x.to(dtype)
     for li, layer in enumerate(model.layers):
-        lp = layer.tensors()
+        lp = layer.tensors(dtype)
         q, k, v = _qkv(cfg, lp, rms_norm(x, lp["attn_norm"]))
         q = rope_rotate(q.reshape(b, 1, -1, cfg.head_dim), c, sn
                         ).reshape(q.shape)
@@ -379,7 +500,11 @@ def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
             flat.index_copy_(0, row, torch.where(
                 dropped, flat.index_select(0, row), new.reshape(b, -1)))
         attn = gqa_kernel.gqa_decode(q[:, 0], k_cache, v_cache, attend)
-        x = _mlp(x + torch.matmul(attn.reshape(b, 1, -1), lp["wo"]), lp)
-    logits = torch.matmul(rms_norm(x, model.final_norm), model.lm_head)
+        x = _mlp(cfg, x + torch.matmul(attn.reshape(b, 1, -1), lp["wo"]),
+                 lp)
+    norm, head = model.final_norm, model.lm_head
+    if dtype is not None:
+        norm, head = norm.to(dtype), head.to(dtype)
+    logits = torch.matmul(rms_norm(x, norm), head)
     length.add_(1)
     return logits[:, 0], cache

@@ -377,10 +377,12 @@ def test_decode_step_on_card_runs_the_kernel_only(cuda_device, monkeypatch):
     assert cache["length"].tolist() == [5, 5, 5]
 
 
-def test_lmserver_on_card_matches_host(cuda_device):
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2-moe-a2.7b"])
+def test_lmserver_on_card_matches_host(cuda_device, arch):
     """The same float32 weights on the card and on the host: equal logits
-    within 2e-4 (the CPU parity tolerance) at every step, equal tokens."""
-    cfg = get_config("internlm2-1.8b", smoke=True)
+    within 2e-4 (the CPU parity tolerance) at every step, equal tokens
+    (the MoE smoke config at 4 slots: capacity 3, which binds)."""
+    cfg = get_config(arch, smoke=True)
     host = TT.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
     card = TT.Transformer(cfg, cuda_device)
     card.load_state_dict(host.state_dict())
@@ -402,6 +404,22 @@ def test_lmserver_on_card_matches_host(cuda_device):
     assert outs["card"] == outs["host"]
     for a, b in zip(logs["card"], logs["host"]):
         torch.testing.assert_close(a, b, rtol=2e-4, atol=2e-4)
+
+
+# ------------------------------------------------------------------ #
+# moe_block and moe_dispatch (no kernel: the card's products and integer
+# dispatch against the host's)
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", chip_smoke.MOE_SMALL_CASES,
+                         ids=[c[0] for c in chip_smoke.MOE_SMALL_CASES])
+def test_moe_block_on_card_matches_host(cuda_device, case, dtype):
+    """The cases of ``chip_smoke.py``'s ``moe_small``: the dispatch exact
+    on the card and on the host against the reference's order
+    (``dispatch_model``), two card calls the same bits, the output within
+    ``recsys_close``'s tolerance, the probes' zeroed tokens zero."""
+    row = chip_smoke.check_moe_case(cuda_device, case, dtype)
+    assert row["ok"]
 
 
 # ------------------------------------------------------------------ #

@@ -2,11 +2,14 @@
 
 Both serve the same weights (the JAX init, carried across by
 ``convert.transformer_from_jax``) on the ``internlm2-1.8b`` smoke config
-in float32.  Every step's logits must agree at rtol/atol 2e-4 (as in
-``tests/test_torch_transformer.py``), and the greedy tokens must be
-equal; equal tokens are a sound check only where no argmax could flip
-within that tolerance, so the test also asserts that every step's top-2
-logit gap in the JAX run exceeds 100× it.
+in float32, and on the ``qwen2-moe-a2.7b`` smoke config, whose 4 slots
+give a capacity of 3 a decode step that binds.  Every step's logits must
+agree at rtol/atol 2e-4 (as in ``tests/test_torch_transformer.py``), and
+the greedy tokens must be equal; equal tokens are a sound check only
+where no argmax could flip, so the test also asserts that every used
+step's top-2 logit gap in the JAX run exceeds 100× that tolerance (dense)
+or twice the row's measured |Δ| between the two servers, which is what
+an argmax needs to agree (MoE: its smoke model's gaps go down to 0.008).
 """
 
 import dataclasses
@@ -31,6 +34,7 @@ from repro.train.serve import LMServer as JaxLMServer  # noqa: E402
 from repro_torch.configs.lm_family import get_config  # noqa: E402
 from repro_torch.convert import transformer_from_jax  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.transformer import init_params  # noqa: E402
 from repro_torch.serve import LMServer  # noqa: E402
 
@@ -46,26 +50,30 @@ def _recording(fn, log, pick):
     return wrapped
 
 
-def _servers(seed=0, max_slots=4, max_len=16):
-    spec = get_arch("internlm2-1.8b")
+def _servers(seed=0, max_slots=4, max_len=16, arch="internlm2-1.8b"):
+    spec = get_arch(arch)
     jcfg = dataclasses.replace(spec.smoke_config, dtype="float32")
     params = spec.init_fn(jcfg, jax.random.PRNGKey(seed))
     model = transformer_from_jax(jax.tree.map(np.asarray, params),
-                                 get_config("internlm2-1.8b", smoke=True),
+                                 get_config(arch, smoke=True),
                                  device="cpu")
     return (JaxLMServer(params, jcfg, max_slots=max_slots, max_len=max_len),
             LMServer(model, max_slots=max_slots, max_len=max_len,
                      device="cpu"))
 
 
-def test_generate_matches_jax_server():
-    jserver, tserver = _servers()
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2-moe-a2.7b"])
+def test_generate_matches_jax_server(arch):
+    jserver, tserver = _servers(arch=arch)
+    dispatches = []
     jlog, tlog = [], []
     jserver.step_fn = _recording(jserver.step_fn, jlog, lambda o: o[0])
     tserver.step = _recording(tserver.step, tlog,
                               lambda o: o.detach().numpy())
     want = jserver.generate(PROMPTS, max_new=6)
-    got = tserver.generate(PROMPTS, max_new=6)
+    with chip_smoke.recorded_dispatches(dispatches):
+        got = tserver.generate(PROMPTS, max_new=6)
+    drops = [int((~keep).sum()) for *_, keep, _ in dispatches]
     assert len(jlog) == len(tlog) == max(map(len, PROMPTS)) + 6
     for i, (j, t) in enumerate(zip(jlog, tlog)):
         np.testing.assert_allclose(t, j, rtol=TOL, atol=TOL,
@@ -73,9 +81,15 @@ def test_generate_matches_jax_server():
         for s, p in enumerate(PROMPTS):
             if i >= len(p) - 1:          # the argmax is used from here on
                 top2 = np.sort(j[s])[-2:]
-                assert top2[1] - top2[0] > 100 * TOL, (i, s, top2)
+                need = (100 * TOL if tserver.cfg.moe is None
+                        else 2 * float(np.abs(t[s] - j[s]).max()))
+                assert top2[1] - top2[0] > need, (i, s, top2, need)
     assert got == want
     assert all(len(o) == 6 for o in got)
+    if tserver.cfg.moe is None:
+        assert not drops
+    else:                               # capacity binds, T = 4 slots
+        assert TT.capacity(4, tserver.cfg.moe) == 3 and sum(drops) > 0
 
 
 def test_two_calls_give_the_same_tokens():
@@ -108,8 +122,9 @@ def test_default_device_is_the_card(monkeypatch):
         launch_serve.main(["--mode", "lm", "--tokens", "2"])
 
 
-def test_launcher_lm_mode_on_the_cpu(capsys):
-    launch_serve.main(["--mode", "lm", "--arch", "qwen2.5-14b",
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "qwen2-moe-a2.7b"])
+def test_launcher_lm_mode_on_the_cpu(capsys, arch):
+    launch_serve.main(["--mode", "lm", "--arch", arch,
                        "--tokens", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert "decoded 12 tokens for 4 sequences on cpu" in out

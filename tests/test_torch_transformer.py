@@ -11,6 +11,8 @@ tolerance of the reference's own decode == forward test
 
 import dataclasses
 import os
+import sys
+from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
@@ -21,11 +23,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro.configs import lm_family as JF
-from repro.models import transformer as JT
-from repro_torch.configs import lm_family as TF
-from repro_torch.convert import transformer_from_jax
-from repro_torch.models import transformer as TT
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke  # noqa: E402  (the repository root's card script)
+from repro.configs import lm_family as JF  # noqa: E402
+from repro.models import transformer as JT  # noqa: E402
+from repro_torch.configs import lm_family as TF  # noqa: E402
+from repro_torch.convert import transformer_from_jax  # noqa: E402
+from repro_torch.models import transformer as TT  # noqa: E402
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -37,13 +42,36 @@ def _configs(arch, **over):
     return j, t
 
 
-# internlm2 (G = 2), qwen2.5 (QKV bias), and a dense config with QK-norm
+# internlm2 (G = 2), qwen2.5 (QKV bias), a dense config with QK-norm, and
+# the two MoE configs (qwen2-moe: shared expert, QKV bias; qwen3-moe:
+# QK-norm, G = 4), whose capacity binds in every test below
 CASES = {
     "internlm2-1.8b": ("internlm2-1.8b", {}),
     "qwen2.5-14b": ("qwen2.5-14b", {}),
     "dense-qk-norm": ("qwen2.5-14b", {"name": "dense-qk-norm-smoke",
                                       "qk_norm": True}),
+    "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}),
+    "qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", {}),
 }
+MOE_CASES = ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"]
+
+
+@pytest.fixture
+def dispatches():
+    """Every ``moe_dispatch`` result of the test, in call order."""
+    log = []
+    with chip_smoke.recorded_dispatches(log):
+        yield log
+
+
+def assert_capacity_binds(case, log):
+    """An MoE case must drop an assignment somewhere (``keep`` false), so
+    that the comparison covers the capacity's overflow; a dense one never
+    dispatches."""
+    if case in MOE_CASES:
+        assert log and any(not bool(keep.all()) for *_, keep, _ in log)
+    else:
+        assert not log
 
 
 def _model(case, seed=0, **over):
@@ -60,7 +88,8 @@ def _np(x):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["qwen2.5-14b", "dense-qk-norm"])
+@pytest.mark.parametrize("case", ["qwen2.5-14b", "dense-qk-norm",
+                                  *MOE_CASES])
 def test_convert_round_trips_every_leaf(case, dtype):
     """Every leaf arrives bit for bit, bfloat16 included (reinterpreted
     through int16, since ``torch.from_numpy`` refuses ml_dtypes arrays)."""
@@ -100,7 +129,7 @@ def test_convert_refuses_mismatched_params():
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_forward_matches_jax(case):
+def test_forward_matches_jax(case, dispatches):
     jcfg, params, model = _model(case, seed=2)
     toks = np.random.default_rng(3).integers(0, jcfg.vocab, size=(2, 9))
     want = JT.forward(params, jnp.asarray(toks, jnp.int32), jcfg)
@@ -109,6 +138,7 @@ def test_forward_matches_jax(case):
     np.testing.assert_allclose(_np(got), np.asarray(want), **TOL)
     np.testing.assert_allclose(_np(TT.prefill(model, torch.from_numpy(toks))),
                                np.asarray(want), **TOL)
+    assert_capacity_binds(case, dispatches)
 
 
 def _decode_both(case, steps, seq_len, seed=4, start=(0, 0, 0), **over):
@@ -139,9 +169,10 @@ def _decode_both(case, steps, seq_len, seed=4, start=(0, 0, 0), **over):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_decode_step_matches_jax(case):
+def test_decode_step_matches_jax(case, dispatches):
     cache = _decode_both(case, steps=6, seq_len=8)
     assert cache["length"].tolist() == [6, 6, 6]
+    assert_capacity_binds(case, dispatches)
 
 
 @pytest.mark.parametrize("max_seq_len", [256, 4])
@@ -202,13 +233,28 @@ def test_configs_equal_jax_field_by_field():
         TF.get_config("gpt-2")
 
 
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
 @pytest.mark.parametrize("name", ["qwen3-moe-235b-a22b", "qwen2-moe-a2.7b"])
-def test_moe_config_raises(name):
-    cfg = TF.get_config(name, smoke=True)
-    with pytest.raises(NotImplementedError, match="moe_block"):
-        TT.Transformer(cfg)
-    with pytest.raises(NotImplementedError, match="moe_block"):
-        TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+def test_moe_model_builds_and_matches_jax_shapes(name, smoke):
+    """Both MoE configs build (on the meta device: Qwen3-MoE holds 235 B
+    parameters), and each layer's leaves are the reference's: names,
+    shapes (without the stacked [L] axis) and dtype."""
+    cfg = TF.get_config(name, smoke=smoke)
+    spec = JF.LM_SPECS[name]
+    jcfg = spec.smoke_config if smoke else spec.config
+    shapes = jax.eval_shape(lambda: JT.init_params(jcfg,
+                                                   jax.random.PRNGKey(0)))
+    want = {n: (leaf.shape[1:], str(leaf.dtype))
+            for n, leaf in shapes["layers"].items()}
+    assert {n: (tuple(s), str(cfg.torch_dtype).split(".")[-1])
+            for n, s in TT.layer_shapes(cfg).items()} == want
+    model = TT.Transformer(cfg, "meta")
+    assert len(model.layers) == jcfg.n_layers
+    for layer in (model.layers[0], model.layers[-1]):
+        assert {n: (tuple(p.shape), str(p.dtype).split(".")[-1])
+                for n, p in layer.named_parameters()} == want
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        int(np.prod(leaf.shape)) for leaf in jax.tree.leaves(shapes))
 
 
 def test_chunked_attention_raises():
