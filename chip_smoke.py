@@ -10,13 +10,14 @@ non-zero:
 0. device: the card, its power limit, the matmul precision settings, and
    the five kernels' builds (set-up time; one nvcc for each source,
    started together) with their registers and spills (none may spill in
-   gqa_decode, bm25_blockmax, embedding_bag or its backward);
+   gqa_decode, whose 34 instances include the mma kernel's 16-row ones,
+   bm25_blockmax, embedding_bag or its backward);
 1. the bm25_blockmax kernel against its plain version at the small shapes
    of the kernel tests (sweep, empty lists, one element, the θ tie
    boundary, BS off the warp width, k above the positive docs, T = 0) and
    at the kernel's edges (T = 17, BS = 132 and 96, NB off the block,
    impacts off 16 bytes);
-2. ranked retrieval, the first slice's main path: index 40,000 seeded
+2. ranked retrieval, the first slice's main path: index 30,000 seeded
    documents through the port's ``ingest_documents``, serve 512 queries
    from 8 client threads through ``RetrievalServer`` on the card, check
    them against the same server on the CPU (bit for bit) and against the
@@ -79,7 +80,10 @@ non-zero:
    at D = 128, an odd D/8, and for the mma kernel lengths about its
    tile, a split ending inside a tile, S below the tile, one split at
    B·Hkv = 1024, D = 256 (the fma kernel in bfloat16), Hkv = 16 and 3,
-   and Qwen2-MoE-A2.7B's layer at phase 12b's cache (Hkv = 16, G = 1);
+   Qwen2-MoE-A2.7B's layer at phase 12b's cache (Hkv = 16, G = 1), and
+   G = 9, 12 and 16 (the mma kernel's 16-row instance; the fma kernel in
+   groups of 8 rows) at D = 64 and 128, lengths off the tile, length 0,
+   length > S, several splits, and D = 256 at G = 16;
 11. lm_serve, the third slice's main path: Qwen2.5-14B at full width in
    bfloat16 (48 layers, random weights from the seed on the card) behind
    ``LMServer(max_slots=8, max_len=1024)``, eight RAG-sized prompts of
@@ -97,8 +101,9 @@ non-zero:
    the seed in 28,672-32,767, K and V from the seed) against the step's
    memory bound, one profiled window, and the kernel alone at one layer's
    [4, 32768, 8, 128] (K and V drawn anew from the seed; all S and the
-   cache's lengths), at long_500k's [1, 524288, 8, 128] and at
-   Qwen2-MoE-A2.7B's [4, 32768, 16, 128] (G = 1), checked against its
+   cache's lengths), at long_500k's [1, 524288, 8, 128], at
+   Qwen2-MoE-A2.7B's [4, 32768, 16, 128] (G = 1) and at Qwen3-MoE-235B's
+   [4, 32768, 4, 128] (G = 16), checked against its
    plain version with a tolerance scaled to the output and timed against
    it, the fma kernel (the design before the mma path),
    ``scaled_dot_product_attention`` and its bound;
@@ -111,12 +116,13 @@ non-zero:
    ``dispatch_model`` (the reference's scatter in loops) given the same
    probabilities, two card calls the same bits, the output within
    RECSYS_RATIO × the host's distance from its float64 run;
-12b. moe_serve, this slice's main path: Qwen2-MoE-A2.7B at full width in
+12b. moe_serve, the MoE slice's main path: Qwen2-MoE-A2.7B at full width in
    bfloat16 (24 layers, 60 experts, top-4, a shared expert; random
    weights from the seed on the card, at phase 11's conditioned init: the
    logit check is blind at the reference's) behind
-   ``LMServer(max_slots=8, max_len=1024)``, eight prompts of 64-256
-   tokens, 16 new tokens each, twice (equal tokens); gqa_decode's launch
+   ``LMServer(max_slots=8, max_len=1024)``, eight prompts of 32-128
+   tokens (64-256 until phase 12c came), 16 new tokens each, twice (equal
+   tokens); gqa_decode's launch
    count zeroed just before each call and read just after (24 × steps).
    The logits are held against the same decode replayed in float32 with
    the plain attention and the decode's routing (T = 8 a step, so the
@@ -128,6 +134,13 @@ non-zero:
    token), tokens/s, peak memory, and the shares of assignments dropped
    and of kept ones overwritten (fault (t)); then the conditioned check at
    one Qwen2-MoE layer (experts redrawn at N(0, 1/d_in) too);
+12c. moe_serve_qwen3: the same phase for Qwen3-MoE-235B-A22B at full
+   width in bfloat16 (d_model 4096, 64 query heads on 4 KV heads: G = 16,
+   128 experts, top-8) with 8 of its 94 layers (the card's memory: 42.3
+   GB), eight prompts of 64-256 tokens, 8 × steps gqa_decode launches
+   through the mma kernel's 16-row instance, C = 1; its conditioned check
+   at one Qwen3-MoE layer holds the G = 16 kernel against the plain
+   attention, and the decode with P rounded once to bfloat16 must fail it;
 13. bag_small: the embedding_bag kernel against its plain version (on the
    card and on the host) at the reference kernel test's sweep, D = 1, 10
    and 50, a bag of 33, B = 0, L = 0, all weights 0, ids in [-V, 0), ids
@@ -203,7 +216,22 @@ non-zero:
    True)`` of the same keys, the kept items, runs, long runs and pieces,
    its plain version and the bound over distinct rows (read and written
    once);
-21. the kernels line; the last line is ``{"ok": true, "device": ...}``.
+21. gnn_small: NequIP's smoke config, node classification on the smoke
+   graph and energies and forces on the smoke molecules (a self loop
+   among their edges), on the card against the same function on the host
+   in float32 and float64 (RECSYS_RATIO × the host's distance + 1 ulp),
+   each also on its input rotated: logits and energies unchanged and
+   forces rotated, on the card, within the same rule on the host's
+   distances at both inputs; ``loss_fn``'s value and gradients card
+   against host;
+22. gnn_serve: NequIP at its full config on two cells, the same checks:
+   minibatch_lg (a 232,965-node parent graph at mean degree 50 from
+   ``random_graph``, ``NeighborSampler`` of 1,024 seeds at fanout 15-10,
+   ``classify`` with 602 features and 41 classes on the subgraph) and
+   molecule (``molecule_batch`` of 128 molecules of 30 nodes and 64
+   edges, ``energy_and_forces``); ms a call (host clock, synchronised),
+   nodes/s, seeds/s, graphs/s, peak memory;
+23. the kernels line; the last line is ``{"ok": true, "device": ...}``.
     The ``done`` line holds every phase's seconds.
 
 It needs a CUDA card and the repository's ``src/`` beside it, and exits
@@ -224,7 +252,7 @@ import time
 import numpy as np
 
 SEED = 0
-N_DOCS = 40_000           # 50,000 until the MoE slice (run time)
+N_DOCS = 30_000           # 50,000, then 40,000 until slices 7b-8 (run time)
 N_QUERIES = 512
 N_CLIENTS = 8
 N_ORACLE = 32
@@ -1952,6 +1980,14 @@ DECODE_CASES = [
     (2, 2, 5, 128, 40, [40, 17]), (128, 8, 5, 64, 256, None),
     (1, 2, 4, 256, 200, [200]), (1, 16, 2, 64, 96, [77]),
     (2, 3, 2, 32, 100, [100, 33]), (8, 16, 1, 128, 1024, None),
+    # G above 8 (the mma kernel's 16-row instance, the fma kernel's groups
+    # of 8 rows): Qwen3-MoE-235B's G = 16 at Hkv = 4, lengths off the tile,
+    # length 0, length > S, several splits, and D > 128 at G = 16
+    (2, 4, 16, 128, 300, [300, 129]), (2, 2, 9, 64, 256, [0, 200]),
+    (2, 4, 12, 128, 256, [257, 10_000]), (3, 4, 16, 64, 1024, None),
+    (4, 4, 16, 128, 4096, None), (2, 1, 12, 128, 700, [700, 333]),
+    (2, 2, 9, 128, 130, [129, 0]), (2, 1, 16, 64, 40, [40, 17]),
+    (1, 2, 16, 256, 200, [200]),
 ]
 # the reference kernel test's tolerances: bfloat16 outputs round to 8 bits
 DECODE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -2522,19 +2558,22 @@ def phase_decode_deploy(dev, bw, flops, cfg=None, b: int = DEPLOY_B,
                                       flops, flush)
     emit("decode_deploy_kernel", case="500k", **rows["500k"])
     del kv, q
-    # Qwen2-MoE-A2.7B's layer at the 32k cache: Hkv = 16, G = 1
-    moe = get_config(MOE_ARCH)
-    hkv, g = moe.n_kv_heads, moe.group_size
-    kv = [torch.empty((b, s, hkv, d), dtype=dt, device=dev)
-          .normal_(generator=gen) for _ in range(2)]
-    q = torch.randn((b, hkv, g, d), generator=gen, device=dev,
-                    dtype=torch.float32).to(dt)
-    full = torch.full((b,), s, dtype=torch.int32, device=dev)
-    rows["32k_g1"] = time_decode_kernel("32k G = 1", q, kv[0], kv[1], full,
-                                        bw, flops, flush)
-    emit("decode_deploy_kernel", case="32k_g1", arch=moe.name,
-         **rows["32k_g1"])
-    del kv, q, flush
+    # the MoE configs' layers at the 32k cache: Qwen2-MoE-A2.7B's Hkv = 16,
+    # G = 1, and Qwen3-MoE-235B's Hkv = 4, G = 16 (the mma kernel's 16-row
+    # instance)
+    for case, arch in (("32k_g1", MOE_ARCH), ("32k_g16", MOE3_ARCH)):
+        moe = get_config(arch)
+        hkv, g = moe.n_kv_heads, moe.group_size
+        kv = [torch.empty((b, s, hkv, d), dtype=dt, device=dev)
+              .normal_(generator=gen) for _ in range(2)]
+        q = torch.randn((b, hkv, g, d), generator=gen, device=dev,
+                        dtype=torch.float32).to(dt)
+        full = torch.full((b,), s, dtype=torch.int32, device=dev)
+        rows[case] = time_decode_kernel(f"32k G = {g}", q, kv[0], kv[1],
+                                        full, bw, flops, flush)
+        emit("decode_deploy_kernel", case=case, arch=moe.name, **rows[case])
+        del kv, q
+    del flush
     torch.cuda.empty_cache()
     return {"step": step, **rows}
 
@@ -2793,7 +2832,16 @@ def phase_moe_small(dev) -> float:
 # phase 12b: MoE decode serving, Qwen2-MoE-A2.7B at full width
 # --------------------------------------------------------------------- #
 MOE_ARCH = "qwen2-moe-a2.7b"
-MOE_PROMPT_LENS = (64, 256)
+MOE3_ARCH = "qwen3-moe-235b-a22b"
+# Qwen3-MoE-235B-A22B at full width (G = 64 / 4 = 16), cut in depth by the
+# card's memory: its 94 layers are about 470 GB in bfloat16; 8 layers are
+# 21.2 B parameters, 42.3 GB, which leaves room for the fp8 rounding in
+# place, the float32 replay's widened layer and the cache
+MOE3_LAYERS = 8
+MOE3_PROMPT_LENS = (64, 256)      # phase 11's RAG-sized prompts
+# Qwen2-MoE-A2.7B's prompts: 64-256 tokens until Qwen3-MoE's phase 12c
+# came, cut to 32-128 to keep the whole run under 600 s (PERF.md §4)
+MOE_PROMPT_LENS = (32, 128)
 MOE_MAX_NEW = 16
 # The logit check of phase 11 compares the decode with a forward; an MoE
 # forward over the same tokens routes T = B·S tokens at once and so has
@@ -2864,10 +2912,18 @@ def moe_logit_check(model, fed, dec, slots: int, max_len: int,
     return got, yardstick, fp8, counts
 
 
+def moe3_config():
+    """Qwen3-MoE-235B-A22B at full width with MOE3_LAYERS of its 94
+    layers."""
+    from repro_torch.configs.lm_family import get_config
+    return dataclasses.replace(get_config(MOE3_ARCH), n_layers=MOE3_LAYERS)
+
+
 def phase_moe_serve(dev, bw: float, cfg=None, slots: int = LM_SLOTS,
                     max_len: int = LM_MAX_LEN, lens=MOE_PROMPT_LENS,
                     max_new: int = MOE_MAX_NEW,
-                    cond_layers: int = COND_LAYERS) -> dict:
+                    cond_layers: int = COND_LAYERS,
+                    phase: str = "moe_serve") -> dict:
     import torch
     from repro_torch.configs.lm_family import get_config
     from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
@@ -2969,7 +3025,7 @@ def phase_moe_serve(dev, bw: float, cfg=None, slots: int = LM_SLOTS,
                          f"{LOGIT_RATIO} x the {cfg.dtype} replay's, top-1 "
                          f"agreement >= its - {TOP1_SLACK}",
                conditioned=cond)
-    emit("moe_serve", **row)
+    emit(phase, **row)
     check(got["mean_abs"] <= logit_tol and got["top1_agree"] >= top1_min,
           f"MoE decode logits vs the float32 replay: {got}, tolerance "
           f"{logit_tol}, top-1 >= {top1_min}")
@@ -4324,6 +4380,278 @@ def phase_bag_backward_deploy(dev, bw, flops, batch: int = None,
     return rows
 
 
+# --------------------------------------------------------------------- #
+# phases 21-22: NequIP, graph serving (no kernel of the repository: its
+# message passing is index_add, the reference's segment_sum)
+# --------------------------------------------------------------------- #
+# minibatch_lg: the reference's cell samples 1,024 seeds at fanout 15-10
+# from a 232,965-node graph (Reddit's node count, the reference's
+# gnn_family.py docstring).  Reddit's 114.6 M edges are cut to mean degree
+# 50 (11,648,250 edges) to keep the host's graph build and sampler index
+# short; fanout 15 needs a degree of at least 15.
+GNN_PARENT_NODES = 232_965
+GNN_PARENT_EDGES = 11_648_250
+GNN_SEEDS = 1_024
+GNN_FANOUTS = (15, 10)
+GNN_MOLECULES = (128, 30, 64)     # molecule: graphs, nodes and edges each
+GNN_TIMED = 10                    # calls timed after the checked one
+
+
+def gnn_rotation(seed: int = SEED + 5) -> np.ndarray:
+    """A random proper rotation [3, 3] (QR of a seeded Gaussian, det +1),
+    as the reference's equivariance test draws one."""
+    q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((3, 3)))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    return q
+
+
+def gnn_call(model, task: str, b: dict) -> dict:
+    """One NequIP call on the tensors ``b``: ``classify``'s logits, or
+    ``energy_and_forces``' energies and forces."""
+    from repro_torch.models import nequip as NQ
+    if task == "classify":
+        return {"logits": NQ.classify(model, b["positions"], b["species"],
+                                      b["senders"], b["receivers"],
+                                      b.get("node_feats"))}
+    e, f = NQ.energy_and_forces(model, b["positions"], b["species"],
+                                b["senders"], b["receivers"],
+                                b["graph_ids"], b["n_graphs"])
+    return {"energies": e, "forces": f}
+
+
+def gnn_tensors(batch: dict, dev, dtype=None) -> dict:
+    """A numpy graph batch as tensors on ``dev``, float arrays in
+    ``dtype`` where one is given; scalars as they are."""
+    import torch
+    out = {}
+    for k, v in batch.items():
+        if np.isscalar(v):
+            out[k] = v
+            continue
+        t = torch.as_tensor(v, device=dev)
+        out[k] = t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
+    return out
+
+
+def gnn_rotated(batch: dict, rot: np.ndarray) -> dict:
+    """The batch with every position rotated by ``rot`` (x → R x)."""
+    return dict(batch, positions=(batch["positions"].astype(np.float64)
+                                  @ rot.T).astype(np.float32))
+
+
+def gnn_check(dev, model, task: str, batch: dict, rot: np.ndarray,
+              what: str) -> dict:
+    """``task`` on the card against the same function on the host in
+    float32 and float64 (``recsys_close``), on ``batch`` and on it rotated;
+    then on the card the rotation leaves logits and energies unchanged and
+    rotates the forces, within RECSYS_RATIO × the host's float32-vs-
+    float64 distance on the two inputs plus one float32 ulp of the
+    output's scale (the rotated output taken back in float64); forces
+    finite."""
+    import copy
+    import torch
+    host = copy.deepcopy(model).cpu()
+    host64 = copy.deepcopy(host).double()
+    rows = {}
+    outs = {}
+    for name, b in (("input", batch), ("rotated", gnn_rotated(batch, rot))):
+        got = gnn_call(model, task, gnn_tensors(b, dev))
+        want = gnn_call(host, task, gnn_tensors(b, "cpu"))
+        want64 = gnn_call(host64, task, gnn_tensors(b, "cpu", torch.float64))
+        outs[name] = (got, want, want64)
+        for key in got:
+            check(bool(torch.isfinite(got[key]).all()),
+                  f"{what} {name}: non-finite {key}")
+            cmp = recsys_close(got[key], want[key], want64[key])
+            check(cmp["ok"], f"{what} {name} {key}: {cmp['max_abs_err']} "
+                             f"from the host, tolerance {cmp['tolerance']} "
+                             f"(scale {cmp['scale']})")
+            rows[f"{name}_{key}"] = cmp
+    r = torch.as_tensor(rot, dtype=torch.float64)
+    for key in outs["input"][0]:
+        got, want, want64 = outs["input"]
+        rgot, rwant, rwant64 = outs["rotated"]
+        a, b = got[key].double().cpu(), rgot[key].double().cpu()
+        if key == "forces":
+            a = a @ r.T                     # F(R x) = R F(x)
+        host_err = float((want[key].double() - want64[key]).abs().max()
+                         + (rwant[key].double() - rwant64[key]).abs().max())
+        scale = float(want64[key].abs().max())
+        tol = RECSYS_RATIO * host_err + float(np.spacing(np.float32(scale)))
+        err = float((a - b).abs().max())
+        check(err <= tol, f"{what} {key}: the card's output moves {err} "
+                          f"under a rotation, tolerance {tol}")
+        rows[f"rotation_{key}"] = {"max_abs_err": err, "tolerance": tol,
+                                   "host_vs_f64": host_err, "scale": scale}
+    return rows
+
+
+def gnn_close(got, want, want64) -> dict:
+    """``recsys_close``, where a leaf that is zero on the host in float32
+    and float64 (a gradient no path reaches: a layer's ``gate2`` acts on
+    l = 2 features that start at zero, and the last layer's on features
+    nothing reads) must be exactly zero on the card."""
+    if float(want64.abs().max()) == 0.0 and float(want.abs().max()) == 0.0:
+        err = float(got.abs().max())
+        return {"max_abs_err": err, "tolerance": 0.0, "host_vs_f64": 0.0,
+                "scale": 0.0, "ok": err == 0.0}
+    return recsys_close(got, want, want64)
+
+
+def gnn_loss_check(dev, model, batch: dict, what: str) -> dict:
+    """``loss_fn``'s value and gradients on the card against the host's in
+    float32 and float64, each leaf by ``recsys_close``."""
+    import copy
+    import torch
+    from repro_torch.configs.gnn_family import loss_fn
+    rows = {}
+    grads = []
+    for m, dtype in ((copy.deepcopy(model), None),
+                     (copy.deepcopy(model).cpu(), None),
+                     (copy.deepcopy(model).cpu().double(), torch.float64)):
+        m.requires_grad_(True)
+        loss = loss_fn(m, gnn_tensors(batch, m.device, dtype))
+        loss.backward()
+        grads.append({"loss": loss.detach()[None],
+                      **{n: p.grad for n, p in m.named_parameters()}})
+    for n in grads[0]:
+        check(bool(torch.isfinite(grads[0][n]).all()),
+              f"{what}: non-finite gradient of {n}")
+        cmp = gnn_close(grads[0][n], grads[1][n], grads[2][n])
+        check(cmp["ok"], f"{what} {n}: {cmp['max_abs_err']} from the host, "
+                         f"tolerance {cmp['tolerance']}")
+        rows[n] = cmp["max_abs_err"]
+    return rows
+
+
+def gnn_self_loop(batch: dict) -> dict:
+    """The molecule batch with its first edge made a self loop (a
+    zero-length edge, as padding makes)."""
+    senders = batch["senders"].copy()
+    senders[0] = batch["receivers"][0]
+    return dict(batch, senders=senders)
+
+
+def phase_gnn_small(dev) -> dict:
+    """NequIP's smoke config on the card against the host, both tasks:
+    node classification on the smoke graph, energies and forces on the
+    smoke molecules (one self loop among their edges), each also rotated,
+    and ``loss_fn``'s gradients of both."""
+    import torch
+    from repro_torch.configs.gnn_family import (NEQUIP_SMOKE, cfg_for_cell,
+                                                smoke_batch)
+    from repro_torch.models.nequip import init_params
+    rot = gnn_rotation()
+    out = {}
+    for task, cfg in (("classify", NEQUIP_SMOKE),
+                      ("energy_and_forces",
+                       cfg_for_cell(NEQUIP_SMOKE, "molecule"))):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        model = init_params(cfg, gen, dev)
+        batch = smoke_batch(cfg, "train", seed=SEED)
+        if task != "classify":
+            batch = gnn_self_loop(batch)
+        out[task] = {"outputs": gnn_check(dev, model, task, batch, rot,
+                                          f"gnn_small {task}"),
+                     "loss_grads": gnn_loss_check(dev, model, batch,
+                                                  f"gnn_small {task} loss")}
+    _sync(dev)
+    emit("gnn_small", config=NEQUIP_SMOKE.name, **out,
+         tolerance=f"card vs host <= {RECSYS_RATIO} x the host's distance "
+                   f"from float64 + 1 ulp; under a rotation the same rule "
+                   f"on the host's distances at both inputs")
+    return out
+
+
+def gnn_timed(model, task: str, b: dict, dev, n: int = GNN_TIMED) -> float:
+    """ms a call (host clock, synchronised) of ``task`` on tensors already
+    on ``dev``, the median of ``n`` calls."""
+    ms = []
+    for _ in range(n):
+        _sync(dev)
+        t0 = time.perf_counter()
+        gnn_call(model, task, b)
+        _sync(dev)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(ms))
+
+
+def phase_gnn_serve(dev, cfg=None, parent=(GNN_PARENT_NODES,
+                                           GNN_PARENT_EDGES),
+                    seeds: int = GNN_SEEDS, fanouts=GNN_FANOUTS,
+                    molecules=GNN_MOLECULES, timed: int = GNN_TIMED) -> dict:
+    """NequIP at its full config (5 layers, 32 channels a irrep order) on
+    two cells: minibatch_lg (``classify`` on a 1,024-seed, fanout 15-10
+    sample of a 232,965-node graph, 602 features, 41 classes) and molecule
+    (``energy_and_forces`` on 128 molecules of 30 nodes and 64 edges); each
+    card against the host and rotated (:func:`gnn_check`); ms a call,
+    nodes/s and graphs/s, peak memory."""
+    import torch
+    from repro_torch.configs.gnn_family import NEQUIP, cfg_for_cell
+    from repro_torch.data.synth import (NeighborSampler, molecule_batch,
+                                        random_graph)
+    from repro_torch.models.nequip import init_params
+    cfg = cfg or NEQUIP
+    cuda = torch.device(dev).type == "cuda"
+    rot = gnn_rotation()
+    out = {}
+
+    # minibatch_lg: the parent graph and its sampler index on the host
+    cell_cfg = cfg_for_cell(cfg, "minibatch_lg")
+    t0 = time.perf_counter()
+    g = random_graph(SEED, parent[0], parent[1], d_feat=cell_cfg.d_feat,
+                     n_classes=cell_cfg.n_classes)
+    sampler = NeighborSampler(parent[0], g["senders"], g["receivers"])
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 7)
+    seed_nodes = rng.choice(parent[0], seeds, replace=False)
+    t0 = time.perf_counter()
+    sub = sampler.sample(seed_nodes, list(fanouts), rng)
+    sample_ms = 1e3 * (time.perf_counter() - t0)
+    nodes = sub["nodes"]
+    batch = {"positions": g["positions"][nodes],
+             "species": g["species"][nodes],
+             "node_feats": g["node_feats"][nodes],
+             "senders": sub["senders"], "receivers": sub["receivers"]}
+    del g, sampler
+    molecules_batch = molecule_batch(SEED, *molecules)
+    for cell, task, c, b, items in (
+            ("minibatch_lg", "classify", cell_cfg, batch, seeds),
+            ("molecule", "energy_and_forces", cfg_for_cell(cfg, "molecule"),
+             molecules_batch, molecules[0])):
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        model = init_params(c, gen, dev)
+        row = {"config": c.name, "d_feat": c.d_feat,
+               "n_classes": c.n_classes, "params": c.param_count(),
+               "nodes": int(len(b["positions"])),
+               "edges": int(len(b["senders"]))}
+        row["checks"] = gnn_check(dev, model, task, b, rot, cell)
+        tb = gnn_tensors(b, dev)
+        ms = gnn_timed(model, task, tb, dev, timed)
+        row.update(ms_per_call=ms, nodes_per_s=1e3 * row["nodes"] / ms,
+                   peak_mem_gb=(torch.cuda.max_memory_allocated() / 1e9
+                                if cuda else None))
+        if cell == "minibatch_lg":
+            row.update(parent_nodes=parent[0], parent_edges=parent[1],
+                       seeds=seeds, fanouts=list(fanouts),
+                       seeds_per_s=1e3 * items / ms, graph_build_s=build_s,
+                       sample_ms=sample_ms)
+        else:
+            row.update(graphs=items, graphs_per_s=1e3 * items / ms)
+        out[cell] = row
+        emit("gnn_serve", cell=cell, **row)
+        del model, tb
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4361,7 +4689,7 @@ def main() -> int:
          ptxas={k: ptxas_summary(v["log"]) for k, v in built.items()})
     if "gqa_decode" in built:
         lines = ptxas_summary(built["gqa_decode"]["log"])
-        check(len(lines) >= 26 and all(" 0 bytes spill stores" in line
+        check(len(lines) >= 34 and all(" 0 bytes spill stores" in line
                                        for line in lines.values()),
               f"a gqa_decode instantiation spills: {lines}")
     for k in ("bm25_blockmax", "embedding_bag", "embedding_bag_backward"):
@@ -4398,6 +4726,9 @@ def main() -> int:
     deploy = timed("decode_deploy", phase_decode_deploy, dev, bw, flops)
     timed("moe_small", phase_moe_small, dev)
     moe = timed("moe_serve", phase_moe_serve, dev, bw)
+    moe3 = timed("moe_serve_qwen3", phase_moe_serve, dev, bw,
+                 cfg=moe3_config(), lens=MOE3_PROMPT_LENS,
+                 phase="moe_serve_qwen3")
     bag_err = timed("bag_small", phase_bag_small, dev)
     recsys = timed("recsys_serve", phase_recsys_serve, dev)
     bags = timed("bag_deploy", phase_bag_deploy, dev, bw, flops)
@@ -4407,12 +4738,13 @@ def main() -> int:
     rec_train = timed("train_recsys", phase_train_recsys, dev)
     backs = timed("bag_backward_deploy", phase_bag_backward_deploy, dev, bw,
                   flops)
+    timed("gnn_small", phase_gnn_small, dev)
+    timed("gnn_serve", phase_gnn_serve, dev)
     emit("done", seconds=time.perf_counter() - t_start, phase_s=phase_s)
 
     r = rows[10]
     j1 = joins["J1"]
     k32 = deploy["32k"]
-    g1 = deploy["32k_g1"]
     bag = bags["uniform"]
     print(json.dumps({"kernels": [{
         "name": "bm25_blockmax", "route": "cuda",
@@ -4456,14 +4788,16 @@ def main() -> int:
         "source": "src/repro_torch/csrc/gqa_decode.cu",
         "replaces": "src/repro/kernels/gqa_decode/kernel.py:62",
         "design": "mma: cp.async ring of K/V tiles, mma.sync for q.K and "
-                  "P.V (P as bf16 hi + lo)",
+                  "P.V (P as bf16 hi + lo: in rows 8-15 of the m16 tile "
+                  "at G <= 8, two products a V fragment at 9 <= G <= 16)",
         "launches": lm["calls"][0]["launches"]
-        + moe["calls"][0]["launches"],
+        + moe["calls"][0]["launches"] + moe3["calls"][0]["launches"],
         "launches_by_path": {"lm_serve": lm["calls"][0]["launches"],
-                             "moe_serve": moe["calls"][0]["launches"]},
+                             "moe_serve": moe["calls"][0]["launches"],
+                             "moe_serve_qwen3": moe3["calls"][0]["launches"]},
         "max_abs_err": max(decode_err, *(deploy[c]["max_abs_err"]
                                          for c in ("32k", "500k",
-                                                   "32k_g1"))),
+                                                   "32k_g1", "32k_g16"))),
         "ms": k32["kernel_ms"], "kernel_ms": k32["kernel_ms"],
         "plain_ms": k32["plain_ms"], "library_ms": k32["library_ms"],
         "bound_ms": k32["bound_ms"], "bound_by": k32["bound_by"],
@@ -4472,9 +4806,9 @@ def main() -> int:
         "500k": {k: deploy["500k"][k] for k in (
             "shape", "kernel_ms", "plain_ms", "fma_ms", "library_ms",
             "bound_ms", "bound_by")},
-        "32k_g1": {k: g1[k] for k in (
+        **{case: {k: deploy[case][k] for k in (
             "shape", "g", "kernel_ms", "plain_ms", "fma_ms", "library_ms",
-            "bound_ms", "bound_by")},
+            "bound_ms", "bound_by")} for case in ("32k_g1", "32k_g16")},
     }, {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/csrc/embedding_bag.cu",

@@ -10,6 +10,7 @@
   :class:`~repro_torch.models.transformer.Transformer`.
 - Recsys weights: the same for DLRM, xDeepFM, two-tower and SASRec →
   the modules of :mod:`repro_torch.models.recsys`.
+- NequIP weights: the same → :class:`repro_torch.models.nequip.Nequip`.
 - And back: :func:`model_tree` lays a model's tensors out as the JAX
   package's parameter pytree (the transformer's layers stacked), which is
   how train-state checkpoints are written.
@@ -26,7 +27,7 @@ from repro_torch.core.featurizer import Featurizer
 from repro_torch.dist.checkpoint import Stacked
 from repro_torch.core.index import DynamicIndex, Segment
 from repro_torch.core.tokenizer import Tokenizer
-from repro_torch.models import recsys
+from repro_torch.models import nequip, recsys
 from repro_torch.models.transformer import (Transformer, TransformerConfig,
                                             layer_shapes)
 
@@ -133,7 +134,26 @@ def recsys_from_jax(params: Mapping, cfg, device=None) -> recsys._Recsys:
     bit, not transposed; the leaves must be exactly the model's, each of
     the config's shape and dtype.
     """
-    model = recsys.make_model(cfg, device)
+    return _copy_leaves(recsys.make_model(cfg, device), params)
+
+
+@torch.no_grad()
+def nequip_from_jax(params: Mapping, cfg: nequip.NequipConfig,
+                    device=None) -> nequip.Nequip:
+    """The JAX package's NequIP parameters → the port's model of ``cfg``.
+
+    ``params`` is the pytree that ``jax.tree.map(np.asarray, params)``
+    gives: ``species_embed``, ``layers`` (each leaf stacked on
+    [n_layers]), ``head_w1``, ``head_w2`` and, with input features,
+    ``feat_embed``.  Each leaf is copied bit for bit, stacked as it is;
+    the leaves must be exactly the model's, each of the config's shape and
+    dtype."""
+    return _copy_leaves(nequip.Nequip(cfg, device), params)
+
+
+def _copy_leaves(model: torch.nn.Module, params: Mapping):
+    """Copy the pytree ``params`` into ``model``'s parameters of the same
+    dotted names, bit for bit."""
     want = dict(model.named_parameters())
     got = dict(_flatten(params))
     if set(got) != set(want):

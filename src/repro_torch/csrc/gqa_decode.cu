@@ -19,7 +19,7 @@
 // Bound: memory.  The least traffic is the valid K and V rows read once,
 // plus q and out: bytes = 2 * sum_b min(length_b, S) * Hkv * D * elt
 // + 2 * B * Hkv * G * D * elt.  Operations are 4 * sum_b min(length_b, S)
-// * Hkv * G * D, G <= 8 flops a byte: far under the card's rate.  At one
+// * Hkv * G * D, G <= 16 flops a byte: far under the card's rate.  At one
 // layer of Qwen2.5-14B with 4 sequences at 32k (bf16, [4, 32768, 8, 128],
 // G = 5) that is 0.537 GB, 0.160 ms at 3.35 TB/s (H100 SXM data sheet).
 //
@@ -51,14 +51,23 @@
 //   Each warp owns 16 positions of a tile.  Scores go through
 //   mma.sync m16n8k16 (bf16 in, float32 out): A is q padded with zeros to
 //   16 rows and DP = D rounded up to 16 columns, held in registers; B is
-//   the K tile by ldmatrix.  Rows 8-15 of that A are zero (G <= 8), so the
-//   P.V product puts them to use: its A holds P_hi = bf16(p) in rows 0-7
-//   and P_lo = bf16(p - P_hi) in rows 8-15, B is the V tile by
-//   ldmatrix.trans, and the float32 accumulator's rows g and g + 8 are
-//   added at the end.  P keeps about 16 bits that way; a single bf16 P
-//   fails the deployment tolerance.  Online softmax per warp in float32
-//   (l summed from the float32 p, the rescale skipped when no row's max
-//   grew, where it would multiply by 1); the warps merge in shared memory.
+//   the K tile by ldmatrix.  P.V takes P_hi = bf16(p) and P_lo =
+//   bf16(p - P_hi), B the V tile by ldmatrix.trans; P keeps about 16 bits
+//   that way, and a single bf16 P fails the deployment tolerance at every
+//   G.  The kernel has two instances, by the rows of the m16 tile that
+//   hold query rows (ROWS):
+//   - ROWS = 8, G <= 8: rows 8-15 of q's A are zero, so the P.V product
+//     puts them to use: its A holds P_hi in rows 0-7 and P_lo in rows
+//     8-15, one mma a V fragment, and the float32 accumulator's rows g and
+//     g + 8 are added at the end.
+//   - ROWS = 16, 9 <= G <= 16: q fills rows 8..G-1 too, so each thread
+//     keeps the online softmax of two rows (grp and grp + 8), and P.V
+//     takes two mmas a V fragment, P_hi of all 16 rows and then P_lo,
+//     into the same float32 accumulator.  (G above 16 would need a second
+//     m16 tile; the wrapper refuses it.)
+//   Online softmax per warp in float32 (l summed from the float32 p, the
+//   rescale skipped when no row's max grew, where it would multiply by
+//   1); the warps merge in shared memory.
 //   wgmma is not used: its 64-row tile would hold 8 useful rows, and the
 //   kernel is memory-bound with mma.sync's products off the FMA pipe.
 //
@@ -69,7 +78,13 @@
 //   16-byte load per row for bfloat16), so a block holds 128/TPR row
 //   groups, each with its own online softmax per query row in float32
 //   over U rows per step (their loads issued together).  The row groups
-//   merge in shared memory.
+//   merge in shared memory.  An instance takes at most 8 query rows: its
+//   static shared memory is about 5 KB a row (48 KB is the static limit)
+//   and q and the accumulator take 16 registers a row a thread.  So G > 8
+//   goes as ceil(G / 8) launches of at most 8 rows each, one after
+//   another on the stream, each reading its (b, h)'s K and V once.  This
+//   path serves float32 and D > 128, not the bf16 serving path, so the
+//   second read of K and V costs nothing that is served.
 //
 // Both write m = -1e30, l = 0 and load nothing for a split wholly past
 // length: the `pl.when(base < length)` skip.  combine, grid (B*Hkv*G), a
@@ -106,6 +121,8 @@ constexpr int kStages = GQA_STAGES;
 constexpr int kMmaWarps = kTile / 16;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaMaxD = 128;
+constexpr int kMaxG = 16;          // query rows a KV head: one m16 tile
+constexpr int kFmaMaxG = 8;        // query rows of one fma instance
 constexpr int kMaxDevices = 64;
 static_assert(kTile % 16 == 0 && kTile >= 32 && kTile <= 512,
               "GQA_TILE: a multiple of 16 positions, 32 to 512");
@@ -164,13 +181,15 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// Query rows g0 .. g0 + G - 1 of the g_all rows a KV head has.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads, 1)
 gqa_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ length,
                    float* __restrict__ m_part, float* __restrict__ l_part,
                    float* __restrict__ acc_part, int s, int hkv, int d,
-                   int tpr, int n_split, int chunk, float scale) {
+                   int tpr, int n_split, int chunk, float scale, int g_all,
+                   int g0) {
   constexpr int U = kRowsInFlight;
   __shared__ float sm_m[kThreads][G];
   __shared__ float sm_l[kThreads][G];
@@ -182,10 +201,11 @@ gqa_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int len = min(max(length[b], 0), s);
   const int lo = split * chunk;
   const int hi = min(lo + chunk, len);
+  const long long prow = part * g_all + g0;  // this launch's first row
   if (lo >= hi) {
     if (threadIdx.x < G) {
-      m_part[part * G + threadIdx.x] = kNegInf;
-      l_part[part * G + threadIdx.x] = 0.f;
+      m_part[prow + threadIdx.x] = kNegInf;
+      l_part[prow + threadIdx.x] = 0.f;
     }
     return;
   }
@@ -201,7 +221,7 @@ gqa_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int g = 0; g < G; ++g) {
     Vec8<T> x;
     if (active) {
-      x.load(q + ((long long)bh * G + g) * d + e0);
+      x.load(q + ((long long)bh * g_all + g0 + g) * d + e0);
     } else {
       x.zero();
     }
@@ -309,14 +329,14 @@ gqa_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < G * d; i += kThreads) {
     float sum = 0.f;
     for (int r = 0; r < rows; ++r) sum += sm_acc[r * G * d + i];
-    acc_part[part * G * d + i] = sum;
+    acc_part[prow * d + i] = sum;
   }
   if (tid < G) {
     float mstar = sm_m[0][tid], lsum = 0.f;
     for (int r = 1; r < rows; ++r) mstar = fmaxf(mstar, sm_m[r][tid]);
     for (int r = 0; r < rows; ++r) lsum += sm_l[r][tid];
-    m_part[part * G + tid] = mstar;
-    l_part[part * G + tid] = lsum;
+    m_part[prow + tid] = mstar;
+    l_part[prow + tid] = lsum;
   }
 }
 
@@ -415,7 +435,10 @@ __device__ __forceinline__ float hi_f32(uint32_t r) {
 // cols 8 + 2 tig..+1), a3 (row grp + 8, those cols); B regs b0 (k = 2
 // tig..+1, n = grp), b1 (k = 8 + 2 tig..+1); C c0, c1 (row grp, cols 2
 // tig..+1), c2, c3 (row grp + 8).
-template <int NK>
+//
+// ROWS: the rows of the m16 tile that hold query rows, 8 (G <= 8) or 16
+// (9 <= G <= 16); QR = ROWS / 8 rows a thread: grp and, at 16, grp + 8.
+template <int NK, int ROWS>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 gqa_mma_partial_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -424,12 +447,17 @@ gqa_mma_partial_kernel(const __nv_bfloat16* __restrict__ q,
                        float* __restrict__ m_part, float* __restrict__ l_part,
                        float* __restrict__ acc_part, int s, int hkv, int g,
                        int d, int n_split, int chunk, float scale) {
+  static_assert(ROWS == 8 || ROWS == 16, "ROWS: 8 or 16 query rows");
+  constexpr int QR = ROWS / 8;
   constexpr int DP = 16 * NK;      // D padded to the mma's k16
   constexpr int RS = DP + 8;       // row stride in shared memory, elements
   constexpr int STAGE = kTile * RS;  // elements of one K or V tile
+  // the warps' merge buffer reuses the ring
+  static_assert(kMmaWarps * ROWS * DP * 4 <= kStages * 2 * STAGE * 2,
+                "the merge buffer must fit in the ring");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) unsigned long long full[kStages];
-  __shared__ float sm_m[kMmaWarps][8], sm_l[kMmaWarps][8];
+  __shared__ float sm_m[kMmaWarps][ROWS], sm_l[kMmaWarps][ROWS];
   __nv_bfloat16* const sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* const sv = sk + kStages * STAGE;
 
@@ -489,28 +517,42 @@ gqa_mma_partial_kernel(const __nv_bfloat16* __restrict__ q,
   };
   for (int t = 0; t < kStages - 1 && t < n_tiles; ++t) issue(t);
 
-  // q as A fragments: rows grp < G, columns below D; rows 8-15 are zero.
-  uint32_t qa[NK][2];
+  // q as A fragments: qa[kk][half * QR + r] holds row grp + 8 r, columns
+  // kk * 16 + half * 8 + 2 tig..+1 (0 at rows >= G or columns >= D); at
+  // ROWS = 8 rows 8-15 are zero and not held.
+  uint32_t qa[NK][2 * QR];
   {
-    const __nv_bfloat16* qrow = q + ((long long)bh * g + grp) * d;
 #pragma unroll
-    for (int kk = 0; kk < NK; ++kk) {
+    for (int r = 0; r < QR; ++r) {
+      const int row = grp + 8 * r;
+      const __nv_bfloat16* qrow = q + ((long long)bh * g + row) * d;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int col = kk * 16 + half * 8 + 2 * tig;
-        qa[kk][half] = (grp < g && col < d)
-                           ? *reinterpret_cast<const uint32_t*>(qrow + col)
-                           : 0u;
+      for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int col = kk * 16 + half * 8 + 2 * tig;
+          qa[kk][half * QR + r] =
+              (row < g && col < d)
+                  ? *reinterpret_cast<const uint32_t*>(qrow + col)
+                  : 0u;
+        }
       }
     }
   }
 
-  // o[j]: columns 8 j + 2 tig..+1 of row grp, P_hi.V in c0, c1 and P_lo.V
-  // in c2, c3.  m and l of row grp (l is this thread's share of the sum).
+  // o[j]: columns 8 j + 2 tig..+1.  ROWS = 8: P_hi.V of row grp in c0, c1
+  // and P_lo.V in c2, c3; ROWS = 16: (P_hi + P_lo).V of row grp in c0, c1
+  // and of row grp + 8 in c2, c3.  m and l of row grp + 8 r (l is this
+  // thread's share of the sum).
   float o[2 * NK][4];
 #pragma unroll
   for (int j = 0; j < 2 * NK; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m_run = kNegInf, l_run = 0.f;
+  float m_run[QR], l_run[QR];
+#pragma unroll
+  for (int r = 0; r < QR; ++r) {
+    m_run[r] = kNegInf;
+    l_run[r] = 0.f;
+  }
 
   // ldmatrix row addresses of this lane: matrix lane / 8, row lane % 8.
   const int mi = lane >> 3, mr = lane & 7;
@@ -531,73 +573,145 @@ gqa_mma_partial_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < NK; ++kk) {
       uint32_t bk[4];
       ldsm_x4(kt + kk * 32, bk);
-      mma_bf16(sc[0], qa[kk][0], 0u, qa[kk][1], 0u, bk[0], bk[1]);
-      mma_bf16(sc[1], qa[kk][0], 0u, qa[kk][1], 0u, bk[2], bk[3]);
+      if constexpr (ROWS == 8) {
+        mma_bf16(sc[0], qa[kk][0], 0u, qa[kk][1], 0u, bk[0], bk[1]);
+        mma_bf16(sc[1], qa[kk][0], 0u, qa[kk][1], 0u, bk[2], bk[3]);
+      } else {
+        mma_bf16(sc[0], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], bk[0],
+                 bk[1]);
+        mma_bf16(sc[1], qa[kk][0], qa[kk][1], qa[kk][2], qa[kk][3], bk[2],
+                 bk[3]);
+      }
     }
-    // x[i]: position p0 + 8 (i / 2) + 2 tig + i % 2 of row grp.
-    float x[4] = {sc[0][0], sc[0][1], sc[1][0], sc[1][1]};
-    float mx = m_run;
+    // x[r][i]: position p0 + 8 (i / 2) + 2 tig + i % 2 of row grp + 8 r.
+    float x[QR][4], mx[QR];
+    bool grew = false;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int pos = p0 + ((i >> 1) << 3) + 2 * tig + (i & 1);
-      x[i] = pos < hi ? x[i] * scale : kMinusInf;
-      mx = fmaxf(mx, x[i]);
+    for (int r = 0; r < QR; ++r) {
+      x[r][0] = sc[0][2 * r];
+      x[r][1] = sc[0][2 * r + 1];
+      x[r][2] = sc[1][2 * r];
+      x[r][3] = sc[1][2 * r + 1];
+      mx[r] = m_run[r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int pos = p0 + ((i >> 1) << 3) + 2 * tig + (i & 1);
+        x[r][i] = pos < hi ? x[r][i] * scale : kMinusInf;
+        mx[r] = fmaxf(mx[r], x[r][i]);
+      }
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      grew = grew || mx[r] > m_run[r];
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    if (__any_sync(0xffffffffu, mx > m_run)) {
-      const float alpha = __expf(m_run - mx);
-      l_run *= alpha;
+    if (__any_sync(0xffffffffu, grew)) {
+      float alpha[QR];
+#pragma unroll
+      for (int r = 0; r < QR; ++r) {
+        alpha[r] = __expf(m_run[r] - mx[r]);
+        l_run[r] *= alpha[r];
+      }
+      // c0, c1 hold row grp; c2, c3 row grp + 8 at ROWS = 16, and row
+      // grp's P_lo part at ROWS = 8
 #pragma unroll
       for (int j = 0; j < 2 * NK; ++j) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) o[j][e] *= alpha;
+        for (int e = 0; e < 4; ++e) o[j][e] *= alpha[(e >> 1) * (QR - 1)];
       }
     }
-    m_run = mx;
-    float p[4];
+    float p[QR][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = __expf(x[i] - mx);
-    l_run += (p[0] + p[1]) + (p[2] + p[3]);
-    // P_hi = bf16(p) and P_lo = bf16(p - P_hi), two to a register.
-    const uint32_t a0 = pack_bf16(p[0], p[1]), a2 = pack_bf16(p[2], p[3]);
-    const uint32_t a1 = pack_bf16(p[0] - lo_f32(a0), p[1] - hi_f32(a0));
-    const uint32_t a3 = pack_bf16(p[2] - lo_f32(a2), p[3] - hi_f32(a2));
+    for (int r = 0; r < QR; ++r) {
+      m_run[r] = mx[r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p[r][i] = __expf(x[r][i] - mx[r]);
+      l_run[r] += (p[r][0] + p[r][1]) + (p[r][2] + p[r][3]);
+    }
     const uint32_t vt = smem_addr(sv + st * STAGE + v_row * RS + v_col);
+    if constexpr (ROWS == 8) {
+      // P_hi = bf16(p) in rows 0-7 and P_lo = bf16(p - P_hi) in rows 8-15,
+      // two to a register.
+      const uint32_t a0 = pack_bf16(p[0][0], p[0][1]);
+      const uint32_t a2 = pack_bf16(p[0][2], p[0][3]);
+      const uint32_t a1 = pack_bf16(p[0][0] - lo_f32(a0),
+                                    p[0][1] - hi_f32(a0));
+      const uint32_t a3 = pack_bf16(p[0][2] - lo_f32(a2),
+                                    p[0][3] - hi_f32(a2));
 #pragma unroll
-    for (int dp = 0; dp < NK; ++dp) {
-      uint32_t bv[4];
-      ldsm_x4_trans(vt + dp * 32, bv);
-      mma_bf16(o[2 * dp], a0, a1, a2, a3, bv[0], bv[1]);
-      mma_bf16(o[2 * dp + 1], a0, a1, a2, a3, bv[2], bv[3]);
+      for (int dp = 0; dp < NK; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_trans(vt + dp * 32, bv);
+        mma_bf16(o[2 * dp], a0, a1, a2, a3, bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], a0, a1, a2, a3, bv[2], bv[3]);
+      }
+    } else {
+      // P_hi of rows grp and grp + 8 (h0, h2 and h1, h3), then P_lo.
+      uint32_t ph[4], pl[4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float p0v = p[r][2 * half], p1v = p[r][2 * half + 1];
+          const uint32_t hv = pack_bf16(p0v, p1v);
+          ph[2 * half + r] = hv;
+          pl[2 * half + r] = pack_bf16(p0v - lo_f32(hv), p1v - hi_f32(hv));
+        }
+      }
+#pragma unroll
+      for (int dp = 0; dp < NK; ++dp) {
+        uint32_t bv[4];
+        ldsm_x4_trans(vt + dp * 32, bv);
+        mma_bf16(o[2 * dp], ph[0], ph[1], ph[2], ph[3], bv[0], bv[1]);
+        mma_bf16(o[2 * dp], pl[0], pl[1], pl[2], pl[3], bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], ph[0], ph[1], ph[2], ph[3], bv[2], bv[3]);
+        mma_bf16(o[2 * dp + 1], pl[0], pl[1], pl[2], pl[3], bv[2], bv[3]);
+      }
     }
   }
 
   // Merge the warps: rescale each to the block's max, then sum.
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
-  l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
+#pragma unroll
+  for (int r = 0; r < QR; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
   if (tig == 0) {
-    sm_m[warp][grp] = m_run;
-    sm_l[warp][grp] = l_run;
+#pragma unroll
+    for (int r = 0; r < QR; ++r) {
+      sm_m[warp][grp + 8 * r] = m_run[r];
+      sm_l[warp][grp + 8 * r] = l_run[r];
+    }
   }
   __syncthreads();  // also: no warp reads the ring any more
-  float mstar = sm_m[0][grp];
+  float wgt[QR];
 #pragma unroll
-  for (int w = 1; w < kMmaWarps; ++w) mstar = fmaxf(mstar, sm_m[w][grp]);
-  const float wgt = __expf(m_run - mstar);
-  float* const so = reinterpret_cast<float*>(smem_raw);  // [warps][8][DP]
+  for (int r = 0; r < QR; ++r) {
+    float mstar = sm_m[0][grp + 8 * r];
+#pragma unroll
+    for (int w = 1; w < kMmaWarps; ++w) {
+      mstar = fmaxf(mstar, sm_m[w][grp + 8 * r]);
+    }
+    wgt[r] = __expf(m_run[r] - mstar);
+  }
+  float* const so = reinterpret_cast<float*>(smem_raw);  // [warps][ROWS][DP]
 #pragma unroll
   for (int j = 0; j < 2 * NK; ++j) {
-    float* row = so + (warp * 8 + grp) * DP + 8 * j + 2 * tig;
-    row[0] = (o[j][0] + o[j][2]) * wgt;
-    row[1] = (o[j][1] + o[j][3]) * wgt;
+    float* row = so + (warp * ROWS + grp) * DP + 8 * j + 2 * tig;
+    if constexpr (ROWS == 8) {
+      row[0] = (o[j][0] + o[j][2]) * wgt[0];
+      row[1] = (o[j][1] + o[j][3]) * wgt[0];
+    } else {
+      row[0] = o[j][0] * wgt[0];
+      row[1] = o[j][1] * wgt[0];
+      row[8 * DP] = o[j][2] * wgt[1];
+      row[8 * DP + 1] = o[j][3] * wgt[1];
+    }
   }
   __syncthreads();
   for (int i = tid; i < g * d; i += kMmaThreads) {
     const int gi = i / d, e = i - gi * d;
     float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < kMmaWarps; ++w) sum += so[(w * 8 + gi) * DP + e];
+    for (int w = 0; w < kMmaWarps; ++w) sum += so[(w * ROWS + gi) * DP + e];
     acc_part[part * g * d + i] = sum;
   }
   if (tid < g) {
@@ -651,26 +765,27 @@ template <typename T, int G>
 cudaError_t run_fma(const void* q, const void* k, const void* v,
                     const void* length, float* m_part, float* l_part,
                     float* acc_part, int b, int s, int hkv, int d,
-                    int n_split, int chunk, float scale,
+                    int n_split, int chunk, float scale, int g_all, int g0,
                     cudaStream_t stream) {
   int tpr = 1;
   while (tpr * kVec < d) tpr <<= 1;
   gqa_partial_kernel<T, G><<<dim3(b * hkv, n_split), kThreads, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const int*)length, m_part,
-      l_part, acc_part, s, hkv, d, tpr, n_split, chunk, scale);
+      l_part, acc_part, s, hkv, d, tpr, n_split, chunk, scale, g_all, g0);
   return cudaGetLastError();
 }
 
+// Rows g0 .. g0 + g - 1 (g <= kFmaMaxG) of the g_all a KV head has.
 template <typename T>
 cudaError_t dispatch_fma(int g, const void* q, const void* k, const void* v,
                          const void* length, float* m_part, float* l_part,
                          float* acc_part, int b, int s, int hkv, int d,
-                         int n_split, int chunk, float scale,
-                         cudaStream_t stream) {
+                         int n_split, int chunk, float scale, int g_all,
+                         int g0, cudaStream_t stream) {
 #define GQA_CASE(G_)                                                       \
   case G_:                                                                 \
     return run_fma<T, G_>(q, k, v, length, m_part, l_part, acc_part, b, s, \
-                          hkv, d, n_split, chunk, scale, stream);
+                          hkv, d, n_split, chunk, scale, g_all, g0, stream);
   switch (g) {
     GQA_CASE(1) GQA_CASE(2) GQA_CASE(3) GQA_CASE(4)
     GQA_CASE(5) GQA_CASE(6) GQA_CASE(7) GQA_CASE(8)
@@ -680,7 +795,24 @@ cudaError_t dispatch_fma(int g, const void* q, const void* k, const void* v,
 #undef GQA_CASE
 }
 
-template <int NK>
+// Every query row: groups of kFmaMaxG rows, one launch each (see the
+// design note at the top).
+template <typename T>
+cudaError_t run_fma_groups(int g, const void* q, const void* k,
+                           const void* v, const void* length, float* m_part,
+                           float* l_part, float* acc_part, int b, int s,
+                           int hkv, int d, int n_split, int chunk,
+                           float scale, cudaStream_t stream) {
+  for (int g0 = 0; g0 < g; g0 += kFmaMaxG) {
+    const cudaError_t err = dispatch_fma<T>(
+        g - g0 < kFmaMaxG ? g - g0 : kFmaMaxG, q, k, v, length, m_part, l_part, acc_part, b,
+        s, hkv, d, n_split, chunk, scale, g, g0, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int NK, int ROWS>
 cudaError_t run_mma(const void* q, const void* k, const void* v,
                     const void* length, float* m_part, float* l_part,
                     float* acc_part, int b, int s, int hkv, int g, int d,
@@ -694,13 +826,13 @@ cudaError_t run_mma(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(gqa_mma_partial_kernel<NK>,
+    err = cudaFuncSetAttribute(gqa_mma_partial_kernel<NK, ROWS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                smem);
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
-  gqa_mma_partial_kernel<NK>
+  gqa_mma_partial_kernel<NK, ROWS>
       <<<dim3(b * hkv, n_split), kMmaThreads, smem, stream>>>(
           (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
           (const __nv_bfloat16*)v, (const int*)length, m_part, l_part,
@@ -715,8 +847,12 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
                          cudaStream_t stream) {
 #define GQA_CASE(NK_)                                                      \
   case NK_:                                                                \
-    return run_mma<NK_>(q, k, v, length, m_part, l_part, acc_part, b, s,   \
-                        hkv, g, d, n_split, chunk, scale, stream);
+    return g <= 8 ? run_mma<NK_, 8>(q, k, v, length, m_part, l_part,       \
+                                    acc_part, b, s, hkv, g, d, n_split,    \
+                                    chunk, scale, stream)                  \
+                  : run_mma<NK_, 16>(q, k, v, length, m_part, l_part,      \
+                                     acc_part, b, s, hkv, g, d, n_split,   \
+                                     chunk, scale, stream);
   switch ((d + 15) / 16) {
     GQA_CASE(1) GQA_CASE(2) GQA_CASE(3) GQA_CASE(4)
     GQA_CASE(5) GQA_CASE(6) GQA_CASE(7) GQA_CASE(8)
@@ -732,7 +868,8 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 extern "C" int gqa_decode_tile() { return kTile; }
 
 // Launches the partial kernel of `path` (1 = mma: bfloat16, D <= 128,
-// chunk a multiple of the tile; 0 = fma) and the combine on `stream`, and
+// chunk a multiple of the tile; 0 = fma, ceil(G / 8) launches) and the
+// combine on `stream`, for 1 <= G <= 16 query rows a KV head, and
 // returns cudaGetLastError() (0 = launched).  Does not synchronise and
 // allocates nothing: `part` is the caller's float32 scratch of
 // B*Hkv*n_split*G*(D + 2) entries.
@@ -742,7 +879,7 @@ extern "C" int gqa_decode_launch(const void* q, const void* k, const void* v,
                                  int n_split, int chunk, float scale,
                                  int bf16, int mma, void* stream) {
   if (b <= 0 || s <= 0 || hkv <= 0 || d <= 0 || d % kVec != 0 ||
-      d > kMaxD || g < 1 || g > 8 || n_split <= 0 || chunk <= 0 ||
+      d > kMaxD || g < 1 || g > kMaxG || n_split <= 0 || chunk <= 0 ||
       (mma && (!bf16 || d > kMmaMaxD || chunk % kTile != 0))) {
     return (int)cudaErrorInvalidValue;
   }
@@ -756,12 +893,13 @@ extern "C" int gqa_decode_launch(const void* q, const void* k, const void* v,
     err = dispatch_mma(q, k, v, length, m_part, l_part, acc_part, b, s, hkv,
                        g, d, n_split, chunk, scale, st);
   } else if (bf16) {
-    err = dispatch_fma<__nv_bfloat16>(g, q, k, v, length, m_part, l_part,
-                                      acc_part, b, s, hkv, d, n_split,
-                                      chunk, scale, st);
+    err = run_fma_groups<__nv_bfloat16>(g, q, k, v, length, m_part, l_part,
+                                        acc_part, b, s, hkv, d, n_split,
+                                        chunk, scale, st);
   } else {
-    err = dispatch_fma<float>(g, q, k, v, length, m_part, l_part, acc_part,
-                              b, s, hkv, d, n_split, chunk, scale, st);
+    err = run_fma_groups<float>(g, q, k, v, length, m_part, l_part,
+                                acc_part, b, s, hkv, d, n_split, chunk,
+                                scale, st);
   }
   if (err != cudaSuccess) return (int)err;
   if (bf16) {

@@ -1,15 +1,18 @@
 """Seeded synthetic data: Zipfian TREC-like documents, LM token batches,
-the schema-heterogeneous JSON collections of the paper's Fig. 5, and the
-recsys batches.
+the schema-heterogeneous JSON collections of the paper's Fig. 5, the
+graphs of the GNN cells (a random graph, a batch of small molecules and a
+fanout neighbour sampler) and the recsys batches.
 
-The same seed yields the same documents, objects and batches as the
-reference package's ``doc_generator``, ``token_batches``,
-``json_collection`` and ``*_batch``, so both index and score the same data.
+The same seed yields the same documents, objects, graphs, samples and
+batches as the reference package's ``doc_generator``, ``token_batches``,
+``json_collection``, ``random_graph``, ``molecule_batch``,
+``NeighborSampler`` and ``*_batch``, bit for bit, so both index, train on
+and score the same data.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 
@@ -85,6 +88,100 @@ def json_collection(seed: int = 0, scale: float = 1.0) -> Dict[str, list]:
     return {"books": books, "zips": zips, "restaurant": restaurants,
             "city_inspections": inspections, "companies": companies,
             "trades": trades}
+
+
+# ------------------------------------------------------------------ #
+# graphs
+# ------------------------------------------------------------------ #
+def random_graph(seed: int, n_nodes: int, n_edges: int, d_feat: int = 0,
+                 n_classes: int = 0) -> Dict[str, np.ndarray]:
+    """A spatial graph of ``n_nodes`` nodes and ``n_edges`` uniform random
+    edges: positions N(0, 3²), species in [0, 16), sparse binary features
+    and labels where asked."""
+    rng = np.random.default_rng(seed)
+    senders = rng.integers(0, n_nodes, size=n_edges, dtype=np.int32)
+    receivers = rng.integers(0, n_nodes, size=n_edges, dtype=np.int32)
+    out = {
+        "positions": rng.standard_normal((n_nodes, 3)).astype(np.float32) * 3,
+        "species": rng.integers(0, 16, size=n_nodes, dtype=np.int32),
+        "senders": senders, "receivers": receivers,
+    }
+    if d_feat:
+        out["node_feats"] = (rng.standard_normal((n_nodes, d_feat)) < -1
+                             ).astype(np.float32)  # sparse binary features
+    if n_classes:
+        out["labels"] = rng.integers(0, n_classes, size=n_nodes, dtype=np.int32)
+        out["label_mask"] = np.ones(n_nodes, np.float32)
+    return out
+
+
+def molecule_batch(seed: int, batch: int = 128, n_nodes: int = 30,
+                   n_edges: int = 64) -> Dict[str, np.ndarray]:
+    """Batched small molecules with energies/forces (padded batching)."""
+    rng = np.random.default_rng(seed)
+    N, E = batch * n_nodes, batch * n_edges
+    pos = rng.standard_normal((N, 3)).astype(np.float32)
+    senders = np.concatenate([
+        rng.integers(0, n_nodes, n_edges) + g * n_nodes for g in range(batch)
+    ]).astype(np.int32)
+    receivers = np.concatenate([
+        rng.integers(0, n_nodes, n_edges) + g * n_nodes for g in range(batch)
+    ]).astype(np.int32)
+    return {
+        "positions": pos,
+        "species": rng.integers(0, 16, size=N, dtype=np.int32),
+        "senders": senders, "receivers": receivers,
+        "graph_ids": np.repeat(np.arange(batch), n_nodes).astype(np.int32),
+        "n_graphs": batch,
+        "energies": rng.standard_normal(batch).astype(np.float32),
+        "forces": rng.standard_normal((N, 3)).astype(np.float32) * 0.1,
+    }
+
+
+class NeighborSampler:
+    """Real fanout sampler over a CSR adjacency (minibatch_lg shape).
+
+    GraphSAGE-style layered sampling: seed nodes, then `fanout[i]` neighbors
+    per node per hop, with padding by self-loops when degree is short."""
+
+    def __init__(self, n_nodes: int, senders: np.ndarray, receivers: np.ndarray):
+        order = np.argsort(receivers, kind="stable")
+        self.dst_sorted = receivers[order]
+        self.src_sorted = senders[order]
+        self.indptr = np.searchsorted(self.dst_sorted, np.arange(n_nodes + 1))
+        self.n_nodes = n_nodes
+
+    def sample(self, seed_nodes: np.ndarray, fanouts: List[int],
+               rng: np.random.Generator) -> Dict[str, np.ndarray]:
+        """The sampled subgraph: its ``nodes`` (parent ids, sorted), its
+        edges in local ids, and the seeds' local ids."""
+        layers = [seed_nodes.astype(np.int32)]
+        all_src, all_dst = [], []
+        frontier = seed_nodes
+        for f in fanouts:
+            lo = self.indptr[frontier]
+            deg = self.indptr[frontier + 1] - lo
+            # sample f neighbors per frontier node (with replacement; self-
+            # loop when isolated)
+            r = rng.integers(0, np.maximum(deg, 1)[:, None],
+                             size=(len(frontier), f))
+            src = np.where(deg[:, None] > 0,
+                           self.src_sorted[np.minimum(lo[:, None] + r,
+                                                      len(self.src_sorted) - 1)],
+                           frontier[:, None])
+            dst = np.broadcast_to(frontier[:, None], src.shape)
+            all_src.append(src.reshape(-1))
+            all_dst.append(dst.reshape(-1))
+            frontier = np.unique(src)
+            layers.append(frontier.astype(np.int32))
+        nodes = np.unique(np.concatenate(layers))
+        lut = np.zeros(self.n_nodes, np.int32)
+        lut[nodes] = np.arange(len(nodes), dtype=np.int32)
+        senders = lut[np.concatenate(all_src)]
+        receivers = lut[np.concatenate(all_dst)]
+        return {"nodes": nodes.astype(np.int32), "senders": senders,
+                "receivers": receivers,
+                "seed_local": lut[seed_nodes.astype(np.int64)]}
 
 
 # ------------------------------------------------------------------ #

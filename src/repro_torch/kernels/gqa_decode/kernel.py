@@ -6,10 +6,13 @@ counts wrapper calls that launched the kernel (its partial and combine
 passes count as one), and nothing else.
 
 The kernel has two partial passes, chosen by :func:`path` from the dtype
-and D alone: ``MMA`` (bfloat16, D ≤ 128: K/V tiles through a shared-memory
-ring fed by ``cp.async`` copies, both products on tensor cores) and ``FMA``
-(float32, and bfloat16 with D > 128: float32 FMAs).  A build or launch
-that fails raises; no path falls back to another.
+and D alone, at every G from 1 to 16: ``MMA`` (bfloat16, D ≤ 128: K/V
+tiles through a shared-memory ring fed by ``cp.async`` copies, both
+products on tensor cores; G ≤ 8 and 9 ≤ G ≤ 16 are two instances of one
+kernel, by the rows of its m16 tile that hold query rows) and ``FMA``
+(float32, and bfloat16 with D > 128: float32 FMAs; G > 8 as groups of 8
+rows).  A build or launch that fails raises; no path falls back to
+another.
 """
 
 import ctypes
@@ -31,7 +34,7 @@ BLOCKS_PER_SM = 1      # mma blocks the split count aims at, per SM
                        # (swept by launch.decode_sweep)
 FMA_BLOCKS_PER_SM = 8  # the same for the fma kernel
 MIN_SPLIT = 256        # fewest positions a split walks
-MAX_G = 8
+MAX_G = 16             # query rows a KV head: one m16 tile of the mma kernel
 MAX_D = 256
 SMEM_LIMIT = 232_448   # shared memory a block may use on Hopper (227 KB)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -59,15 +62,24 @@ def path(dtype: torch.dtype, d: int) -> str:
     return MMA if dtype == torch.bfloat16 and d <= MMA_MAX_D else FMA
 
 
-def mma_smem_bytes(d: int, tile: int = None, stages: int = None) -> int:
-    """Shared memory of one mma block: the ring's dynamic part (STAGES
-    stages of a K and a V tile, TILE rows of D rounded up to 16 plus 8
-    bfloat16 each; ``mma_smem_bytes`` in the source) and the static part
-    (a barrier a stage, the warps' m and l of 8 rows)."""
+def mma_rows(g: int) -> int:
+    """The rows of the mma kernel's m16 tile that hold query rows (its
+    ``ROWS`` instance): 8 up to G = 8, where rows 8-15 carry P_lo, else
+    16."""
+    return 8 if g <= 8 else 16
+
+
+def mma_smem_bytes(d: int, tile: int = None, stages: int = None,
+                   g: int = 8) -> int:
+    """Shared memory of one mma block at G query rows: the ring's dynamic
+    part (STAGES stages of a K and a V tile, TILE rows of D rounded up to
+    16 plus 8 bfloat16 each; ``mma_smem_bytes`` in the source, which the
+    warps' merge buffer of ``mma_rows(g)`` rows reuses) and the static part
+    (a barrier a stage, the warps' m and l of ``mma_rows(g)`` rows)."""
     tile, stages = tile or TILE, stages or STAGES
     dp = -(-d // 16) * 16
     return (stages * 2 * tile * (dp + 8) * 2 + 8 * stages
-            + 2 * (tile // 16) * 8 * 4)
+            + 2 * (tile // 16) * mma_rows(g) * 4)
 
 
 def splits(bh: int, s: int, sms: int, kind: str = MMA, tile: int = None):
@@ -127,7 +139,7 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q [B, Hkv, G, D]; k, v [B, S, Hkv, D]; length [B] int32 →
     [B, Hkv, G, D] in q's dtype.  q, k and v are float32 or bfloat16 (one
-    type), contiguous; D is a multiple of 8 up to 256; G is 1 to 8.
+    type), contiguous; D is a multiple of 8 up to 256; G is 1 to 16.
     Positions at or past ``length[b]`` do not count, a ``length`` above S
     means all S positions, and ``length == 0`` gives zeros (the Pallas
     kernel's semantics, see :mod:`.ref`).

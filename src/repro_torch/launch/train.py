@@ -1,7 +1,10 @@
-"""Training launcher: ``--arch <name>`` at its smoke config, an LM or a
-recsys model looked up with ``get_config`` (``src/repro/launch/train.py``).
+"""Training launcher: ``--arch <name>`` at its smoke config, an LM, a
+recsys model or NequIP looked up with ``get_config``
+(``src/repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch nequip \
+      --steps 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \
       --steps 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
@@ -29,8 +32,8 @@ INDEX_SEQ = 64
 def _model_and_loss(arch: str, dev, seed: int):
     import torch
 
-    from repro_torch.configs import lm_family, recsys_family
-    from repro_torch.models import recsys, transformer
+    from repro_torch.configs import gnn_family, lm_family, recsys_family
+    from repro_torch.models import nequip, recsys, transformer
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     if arch in lm_family.CONFIGS:
@@ -38,6 +41,10 @@ def _model_and_loss(arch: str, dev, seed: int):
         return (cfg, transformer.init_params(cfg, gen, dev),
                 lm_family.loss_fn,
                 lambda s: lm_family.smoke_batch(cfg, "train", seed=s))
+    if arch in gnn_family.ARCHS:
+        cfg = gnn_family.get_config(arch, smoke=True)
+        return (cfg, nequip.init_params(cfg, gen, dev), gnn_family.loss_fn,
+                lambda s: gnn_family.smoke_batch(cfg, "train", seed=s))
     cfg = recsys_family.get_config(arch, smoke=True)
     return (cfg, recsys.init_params(cfg, gen, dev),
             lambda m, b: recsys_family.loss_fn(arch, m, b),

@@ -102,6 +102,11 @@ EDGES = [
     ("one_position", 1, 1, 1, 8, 1, [1]),
     ("odd_d_over_8", 3, 2, 5, 24, 130, [129, 2, 130]),
     ("g5_d128", 2, 8, 5, 128, 384, [383, 200]),
+    # G above 8: the mma kernel's 16-row instance (Qwen3-MoE-235B's G = 16)
+    ("g9_d64_off_tile", 2, 2, 9, 64, 300, [300, 129]),
+    ("g12_d128_length_0", 2, 1, 12, 128, 256, [0, 255]),
+    ("g16_d128", 2, 4, 16, 128, 384, [384, 17]),
+    ("g16_d16_above_S", 2, 1, 16, 16, 256, [257, 5]),
 ]
 
 
@@ -189,8 +194,8 @@ def _ok_args(dtype=torch.float32, b=2, hkv=2, g=5, d=16, s=32):
                          v[..., :12].contiguous(), n), ValueError, "D must"),
     ("D above 256",
      lambda q, k, v, n: _ok_args(d=264)[:3] + (n,), ValueError, "D must"),
-    ("G above 8",
-     lambda q, k, v, n: (torch.zeros(2, 2, 9, 16), k, v, n), ValueError,
+    ("G above 16",
+     lambda q, k, v, n: (torch.zeros(2, 2, 17, 16), k, v, n), ValueError,
      "G must"),
     ("S = 0",
      lambda q, k, v, n: (q, k[:, :0], v[:, :0], n), ValueError, "S = 0"),
@@ -277,14 +282,17 @@ def emulate_mma(q, k, v, length, sms=H100_SMS, tile=None,
     its own online softmax in float32 (scores of bfloat16 q and K summed
     in float32, scaled by 1/√D; positions at or past the split's end or
     min(length, S) at -inf).  P·V takes P_hi = bf16(p) and P_lo =
-    bf16(p - P_hi) into two float32 sums (``single_bf16``: P_hi alone),
-    added when the warps merge at the block's max; the combine merges the
-    splits with l > 0 and rounds to bfloat16."""
+    bf16(p - P_hi) (``single_bf16``: P_hi alone): at G ≤ 8 (the kernel's
+    8-row instance, P_lo in rows 8-15) into two float32 sums added when
+    the warps merge at the block's max; at G > 8 (the 16-row instance, two
+    products a V fragment) P_hi·V and then P_lo·V into one float32 sum.
+    The combine merges the splits with l > 0 and rounds to bfloat16."""
     tile = tile or gqa_kernel.TILE
     b, hkv, g, d = q.shape
     s = k.shape[1]
     n_split, chunk = gqa_kernel.splits(b * hkv, s, sms, gqa_kernel.MMA, tile)
-    assert chunk % tile == 0
+    assert chunk % tile == 0 and g <= gqa_kernel.MAX_G
+    one_sum = gqa_kernel.mma_rows(g) == 16
     warps = tile // 16
     scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
     qf = q.float()                                        # [B, H, G, D]
@@ -317,12 +325,16 @@ def emulate_mma(q, k, v, length, sms=H100_SMS, tile=None,
         p_lo = torch.zeros_like(p) if single_bf16 else \
             (p - p_hi).bfloat16().float()
         l = torch.where(active, l * alpha + p.sum(-1), l)
-        o_hi = torch.where(active[..., None], o_hi * alpha[..., None]
-                           + torch.einsum("bhnwgp,bhnwpd->bhnwgd", p_hi, vv),
-                           o_hi)
-        o_lo = torch.where(active[..., None], o_lo * alpha[..., None]
-                           + torch.einsum("bhnwgp,bhnwpd->bhnwgd", p_lo, vv),
-                           o_lo)
+        hi_v = torch.einsum("bhnwgp,bhnwpd->bhnwgd", p_hi, vv)
+        lo_v = torch.einsum("bhnwgp,bhnwpd->bhnwgd", p_lo, vv)
+        if one_sum:
+            o_hi = torch.where(active[..., None], o_hi * alpha[..., None]
+                               + hi_v + lo_v, o_hi)
+        else:
+            o_hi = torch.where(active[..., None], o_hi * alpha[..., None]
+                               + hi_v, o_hi)
+            o_lo = torch.where(active[..., None], o_lo * alpha[..., None]
+                               + lo_v, o_lo)
         m = torch.where(active, mx, m)
     # the warps merge at the block's max
     mstar = m.amax(3, keepdim=True)
@@ -380,6 +392,37 @@ def test_mma_emulation_at_32k_deploy_tolerance(single_bf16):
     assert chip_smoke.deploy_close(got, want) is not single_bf16
 
 
+@pytest.mark.parametrize("single_bf16", [False, True],
+                         ids=["p_hi_plus_lo", "p_single_bf16"])
+def test_mma_emulation_at_g16_deploy_tolerance(single_bf16):
+    """The same at Qwen3-MoE-235B's G = 16 (the 16-row instance: P_hi·V
+    and P_lo·V into one sum): the split P holds the deployment tolerance,
+    P rounded once to bfloat16 fails it."""
+    args = _deploy_inputs(seed=1, g=16)
+    got = emulate_mma(*args, single_bf16=single_bf16)
+    want = gqa_decode_ref(*args)
+    assert chip_smoke.deploy_close(got, want) is not single_bf16
+
+
+@pytest.mark.parametrize("g", [9, 16])
+def test_mma_emulation_g_above_8_matches_ref_and_pallas(g):
+    """The 16-row instance's arithmetic against ``gqa_decode_ref`` and
+    the Pallas kernel in interpret mode, at lengths over several splits
+    and tiles (Qwen3-MoE-235B's layout: Hkv = 4, D = 128)."""
+    b, hkv, d, s = 2, 4, 128, 2048
+    arrays = _inputs(31 + g, b, hkv, g, d, s)
+    lengths = [2048, 1001]
+    jx, tx = _both(arrays, "bfloat16")
+    length = torch.tensor(lengths, dtype=torch.int32)
+    got = emulate_mma(*tx, length)
+    tol = DTYPES["bfloat16"][2]
+    np.testing.assert_allclose(_f32(got), _f32(gqa_decode_ref(*tx, length)),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(_f32(got), _f32(_pallas(jx, lengths)),
+                               rtol=tol, atol=tol)
+    assert chip_smoke.deploy_close(got, gqa_decode_ref(*tx, length))
+
+
 def test_path_rule_is_dtype_and_d():
     rule = gqa_kernel.path
     assert [rule(torch.bfloat16, d) for d in (8, 16, 24, 64, 128)] \
@@ -414,10 +457,13 @@ def test_mma_shared_memory_fits_every_setting():
     settings = {(gqa_kernel.TILE, gqa_kernel.STAGES)} | set(ds.VARIANTS)
     for tile, stages in settings:
         for d in range(8, gqa_kernel.MMA_MAX_D + 1, 8):
-            assert gqa_kernel.mma_smem_bytes(d, tile, stages) \
-                <= gqa_kernel.SMEM_LIMIT, (tile, stages, d)
+            for g in (1, 8, 9, gqa_kernel.MAX_G):
+                assert gqa_kernel.mma_smem_bytes(d, tile, stages, g) \
+                    <= gqa_kernel.SMEM_LIMIT, (tile, stages, d, g)
     assert gqa_kernel.mma_smem_bytes(128, 64, 3) == 3 * 2 * 64 * 136 * 2 \
         + 8 * 3 + 2 * 4 * 8 * 4
+    assert gqa_kernel.mma_smem_bytes(128, 64, 3, g=16) \
+        == gqa_kernel.mma_smem_bytes(128, 64, 3) + 2 * 4 * 8 * 4
 
 
 def test_wrapper_settings_are_the_sources():

@@ -2,8 +2,10 @@
 
 Both serve the same weights (the JAX init, carried across by
 ``convert.transformer_from_jax``) on the ``internlm2-1.8b`` smoke config
-in float32, and on the ``qwen2-moe-a2.7b`` smoke config, whose 4 slots
-give a capacity of 3 a decode step that binds.  Every step's logits must
+in float32, and on the ``qwen2-moe-a2.7b`` smoke config and a
+``qwen3-moe-235b-a22b`` smoke config with 16 query heads on 1 KV head
+(the full config's G = 16), whose 4 slots give a capacity of 3 a decode
+step that binds.  Every step's logits must
 agree at rtol/atol 2e-4 (as in ``tests/test_torch_transformer.py``), and
 the greedy tokens must be equal; equal tokens are a sound check only
 where no argmax could flip, so the test also asserts that every used
@@ -50,19 +52,28 @@ def _recording(fn, log, pick):
     return wrapped
 
 
+# a smoke config with its overrides on both packages' configs: Qwen3-MoE
+# with 16 query heads on 1 KV head, the full config's G = 16
+VARIANTS = {"qwen3-moe-g16": ("qwen3-moe-235b-a22b", dict(
+    name="qwen3-moe-g16-smoke", n_heads=16, n_kv_heads=1))}
+
+
 def _servers(seed=0, max_slots=4, max_len=16, arch="internlm2-1.8b"):
+    arch, over = VARIANTS.get(arch, (arch, {}))
     spec = get_arch(arch)
-    jcfg = dataclasses.replace(spec.smoke_config, dtype="float32")
+    jcfg = dataclasses.replace(spec.smoke_config, dtype="float32", **over)
     params = spec.init_fn(jcfg, jax.random.PRNGKey(seed))
     model = transformer_from_jax(jax.tree.map(np.asarray, params),
-                                 get_config(arch, smoke=True),
+                                 dataclasses.replace(
+                                     get_config(arch, smoke=True), **over),
                                  device="cpu")
     return (JaxLMServer(params, jcfg, max_slots=max_slots, max_len=max_len),
             LMServer(model, max_slots=max_slots, max_len=max_len,
                      device="cpu"))
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2-moe-a2.7b",
+                                  "qwen3-moe-g16"])
 def test_generate_matches_jax_server(arch):
     jserver, tserver = _servers(arch=arch)
     dispatches = []

@@ -470,3 +470,36 @@ def test_chip_smoke_moe_serve_on_the_cpu():
     assert row["logits_vs_f32"]["mean_abs"] <= row["mean_abs_tol"]
     assert row["fp8_weights_vs_f32"]["mean_abs"] > row["mean_abs_tol"]
     assert row["conditioned"]["arch"] == cfg.name
+
+
+def test_chip_smoke_moe_serve_qwen3_on_the_cpu():
+    """Phase 12c (``moe_serve_qwen3``) at Qwen3-MoE's bfloat16 smoke
+    config with 16 query heads on 1 KV head (the full config's G = 16), 4
+    slots: equal tokens on two calls, no launches on the CPU, capacity
+    binds, the float32-replay check passes and its fp8 replay fails it,
+    and the conditioned check runs at one layer of the same config."""
+    cfg = dataclasses.replace(
+        TF.get_config("qwen3-moe-235b-a22b", smoke=True), dtype="bfloat16",
+        n_heads=16, n_kv_heads=1)
+    assert cfg.group_size == chip_smoke.moe3_config().group_size == 16
+    row = chip_smoke.phase_moe_serve(torch.device("cpu"), 3.35e12, cfg=cfg,
+                                     slots=4, max_len=64, lens=(8, 24),
+                                     max_new=8, phase="moe_serve_qwen3")
+    assert row["tokens_equal"] and row["g"] == 16 and row["capacity"] == 3
+    assert [c["launches"] for c in row["calls"]] == [0, 0]
+    assert row["dropped_share"] > 0
+    assert row["logits_vs_f32"]["mean_abs"] <= row["mean_abs_tol"]
+    assert row["fp8_weights_vs_f32"]["mean_abs"] > row["mean_abs_tol"]
+    assert row["conditioned"]["arch"] == cfg.name
+    assert row["conditioned"]["layers"] == 1
+
+
+def test_chip_smoke_qwen3_cut_keeps_the_full_width():
+    """Phase 12c's model: Qwen3-MoE-235B at full width, 8 of its 94 layers
+    (about 21.2 B parameters, 42.3 GB in bfloat16), C = 1 at 8 slots."""
+    cfg = chip_smoke.moe3_config()
+    full = TF.get_config("qwen3-moe-235b-a22b")
+    assert dataclasses.replace(cfg, n_layers=full.n_layers) == full
+    assert cfg.n_layers == 8 and cfg.group_size == 16 and cfg.head_dim == 128
+    assert 21.0e9 < cfg.param_count() < 21.4e9
+    assert TT.capacity(chip_smoke.LM_SLOTS, cfg.moe) == 1

@@ -44,7 +44,8 @@ def _configs(arch, **over):
 
 # internlm2 (G = 2), qwen2.5 (QKV bias), a dense config with QK-norm, and
 # the two MoE configs (qwen2-moe: shared expert, QKV bias; qwen3-moe:
-# QK-norm, G = 4), whose capacity binds in every test below
+# QK-norm, G = 4), whose capacity binds in every test below; and qwen3-moe
+# with 16 query heads on 1 KV head, the full config's G = 16
 CASES = {
     "internlm2-1.8b": ("internlm2-1.8b", {}),
     "qwen2.5-14b": ("qwen2.5-14b", {}),
@@ -52,8 +53,11 @@ CASES = {
                                       "qk_norm": True}),
     "qwen2-moe-a2.7b": ("qwen2-moe-a2.7b", {}),
     "qwen3-moe-235b-a22b": ("qwen3-moe-235b-a22b", {}),
+    "qwen3-moe-g16": ("qwen3-moe-235b-a22b", {"name": "qwen3-moe-g16-smoke",
+                                              "n_heads": 16,
+                                              "n_kv_heads": 1}),
 }
-MOE_CASES = ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"]
+MOE_CASES = ["qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "qwen3-moe-g16"]
 
 
 @pytest.fixture
