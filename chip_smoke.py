@@ -57,13 +57,13 @@ non-zero:
    plain version, the whole vectorized operator and the memory bound;
 8. sharded: a ShardedWarren of 4 shard groups × 2 replicas (quorum
    commit, a WAL a replica written through ``core/packing.py``, async
-   scatter) over the stream's first 10,000 documents (50,000 until the
-   training slice), served natively by
+   scatter) over the stream's first 5,000 documents (50,000 until the
+   training slice, 10,000 until the dry run's), served natively by
    ``RetrievalServer`` on the card to phase 2's 512 queries from 8 client
    threads (p50, p95, queries/s, the scatter/score/merge breakdown and the
    idle share of 64 profiled queries); held against the same server on
    the host bit for bit and against a single index's rows over the same
-   10,000 documents by
+   5,000 documents by
    (score, text), ties as sets (queries whose terms exceed the posting
    cap by a pair of uncapped servers: the cap's equal impacts keep
    address order, which differs by design); then 64 queries after each
@@ -231,7 +231,20 @@ non-zero:
    molecule (``molecule_batch`` of 128 molecules of 30 nodes and 64
    edges, ``energy_and_forces``); ms a call (host clock, synchronised),
    nodes/s, seeds/s, graphs/s, peak memory;
-23. the kernels line; the last line is ``{"ok": true, "device": ...}``.
+23. dryrun, the registry's one-card dry run: ``launch.dryrun.run_cell``
+   on the card's fakes (no memory, no data; the kernels' fake
+   implementations) for InternLM2-1.8B's long_500k (a 524,288-position KV
+   cache), DLRM-RM2's serve_p99 and NequIP's molecule (a train step,
+   forces included), then each step for real at full width (weights and
+   inputs from the seed, the cache at length S − 1): the estimated peak
+   within 5 % or 256 MiB of the allocator's, the FLOP counts equal, and
+   for long_500k the estimate without the KV cache refused; gqa_decode's
+   and embedding_bag's launch counts zeroed just before each real step
+   and read just after (24 and 1);
+24. dispatch: the host µs a call of gqa_decode and embedding_bag through
+   their operators and through their eager bodies, in turns (op, body,
+   body, op): what the dispatcher adds to a call;
+25. the kernels line; the last line is ``{"ok": true, "device": ...}``.
     The ``done`` line holds every phase's seconds.
 
 It needs a CUDA card and the repository's ``src/`` beside it, and exits
@@ -266,7 +279,8 @@ JSON_SCALE = 50.0
 N_SHARDS = 4
 N_REPLICAS = 2
 STEP_QUERIES = 64   # after each sharded step; 128 took the run past 600 s
-SHARDED_DOCS = 10_000     # phase 8's corpus (50,000 until the training slice)
+SHARDED_DOCS = 5_000      # phase 8's corpus (50,000 until the training
+                          # slice, 10,000 until the dry run's)
 TIERED_QUERIES = 128
 K_TIES = 64
 MAX_TERMS = 8             # the server's default max_terms
@@ -4541,7 +4555,7 @@ def phase_gnn_small(dev) -> dict:
     and ``loss_fn``'s gradients of both."""
     import torch
     from repro_torch.configs.gnn_family import (NEQUIP_SMOKE, cfg_for_cell,
-                                                smoke_batch)
+                                                gnn_smoke_batch)
     from repro_torch.models.nequip import init_params
     rot = gnn_rotation()
     out = {}
@@ -4551,7 +4565,7 @@ def phase_gnn_small(dev) -> dict:
         gen = torch.Generator(device=dev)
         gen.manual_seed(SEED)
         model = init_params(cfg, gen, dev)
-        batch = smoke_batch(cfg, "train", seed=SEED)
+        batch = gnn_smoke_batch(cfg, "train", seed=SEED)
         if task != "classify":
             batch = gnn_self_loop(batch)
         out[task] = {"outputs": gnn_check(dev, model, task, batch, rot,
@@ -4652,6 +4666,143 @@ def phase_gnn_serve(dev, cfg=None, parent=(GNN_PARENT_NODES,
     return out
 
 
+# phase 23: the one-card dry run held against real steps (slice 9), and
+# each real step's kernel launches
+DRYRUN_CELLS = {("internlm2-1.8b", "long_500k"): {"gqa_decode": 24},
+                ("dlrm-rm2", "serve_p99"): {"embedding_bag": 1},
+                ("nequip", "molecule"): {}}
+DRYRUN_SHARE = 0.05          # an estimate within 5 % of the measured peak,
+DRYRUN_FLOOR = 256 << 20     # or within 256 MiB, whichever is larger
+DISPATCH_CALLS = 2000        # calls a turn of dispatch_cost
+
+
+def dispatch_cost(dev, calls: int = DISPATCH_CALLS) -> dict:
+    """Host µs a call of gqa_decode (at lm_serve's decode: 8 slots,
+    Qwen2.5-14B's 8 KV heads of 5 query heads, a 1,024-row cache) and of
+    embedding_bag (512 bags of 26 items over a [1000, 64] table: a small
+    lookup, so the call's host time shows) through the operator
+    and through its eager body (the wrapper before it became one), in
+    turns (op, body, body, op), synchronised before and after each turn:
+    what the dispatcher adds to a call."""
+    import torch
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    dt = torch.bfloat16 if torch.device(dev).type == "cuda" else \
+        torch.float32
+    q = torch.randn((8, 8, 5, 128), generator=g, device=dev).to(dt)
+    k, v = (torch.randn((8, 1024, 8, 128), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    length = torch.full((8,), 700, dtype=torch.int32, device=dev)
+    table = torch.randn((1000, 64), generator=g, device=dev)
+    ids = torch.randint(0, 1000, (512, 26), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.ones((512, 26), device=dev)
+
+    def host_us(fn) -> float:
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = 1e6 * (time.perf_counter() - t0) / calls
+        _sync(dev)
+        return us
+    out = {}
+    for name, op, args in (("gqa_decode", gqa_kernel.gqa_decode,
+                            (q, k, v, length)),
+                           ("embedding_bag", bag_kernel.embedding_bag,
+                            (table, ids, w))):
+        body = op._init_fn
+        host_us(lambda: op(*args))                  # warm
+        turns = [host_us(lambda: op(*args)), host_us(lambda: body(*args)),
+                 host_us(lambda: body(*args)), host_us(lambda: op(*args))]
+        out[name] = {"op_us": [turns[0], turns[3]],
+                     "body_us": [turns[1], turns[2]],
+                     "added_us": (turns[0] + turns[3] - turns[1]
+                                  - turns[2]) / 2}
+    emit("dispatch", **out)
+    return out
+
+
+def estimate_holds(estimate: float, measured: float) -> bool:
+    """The dry run's memory check: ``estimate`` within DRYRUN_SHARE of
+    ``measured`` or DRYRUN_FLOOR bytes, whichever is larger."""
+    return abs(estimate - measured) <= max(DRYRUN_SHARE * measured,
+                                           DRYRUN_FLOOR)
+
+
+def phase_dryrun(dev, cells=DRYRUN_CELLS, seed: int = SEED,
+                 configs: dict = None) -> dict:
+    """Each cell's dry run (``launch.dryrun.run_cell``) on fakes of
+    ``dev``, then the same step for real at full width (the model and
+    inputs from ``seed``; a decode cache at length S − 1), held to it: the
+    estimated peak within :func:`estimate_holds` of the allocator's peak
+    above what was allocated before the cell was built, the real step's
+    FLOP count equal to the fake one, and, for a cell with a KV cache, the
+    estimate without the cache refused.  gqa_decode's and embedding_bag's
+    launch counts are zeroed just before the real step and read just
+    after, and must be ``cells``' (every other kernel's 0).  ``configs``
+    maps an arch to a config to run in place of its full one (the CPU
+    tests' small sizes)."""
+    import torch
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
+    from repro_torch.launch.dryrun import run_cell
+    cuda = torch.device(dev).type == "cuda"
+    out = {}
+    for (arch, shape), want in cells.items():
+        cfg = (configs or {}).get(arch)
+        fake = run_cell(arch, shape, dev, cfg)
+        check(fake["ok"], f"dry run of {arch}/{shape}: "
+              f"{fake.get('traceback', '')}")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        gqa_kernel.launches = 0                     # the real step's path
+        bag_kernel.launches = bag_kernel.backward_launches = 0
+        real = run_cell(arch, shape, dev, cfg, seed=seed)
+        launches = {"gqa_decode": gqa_kernel.launches,          # ends here
+                    "embedding_bag": bag_kernel.launches,
+                    "embedding_bag_backward": bag_kernel.backward_launches}
+        check(real["ok"], f"real step of {arch}/{shape}: "
+              f"{real.get('traceback', '')}")
+        check(launches == {k: want.get(k, 0) for k in launches},
+              f"{arch}/{shape}: launches {launches}, want {want}")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        est = fake["memory"]["peak_bytes"]
+        got = real["memory"].get("allocator_peak_bytes",
+                                 real["memory"]["peak_bytes"])
+        row = {"estimate_bytes": est, "measured_bytes": got,
+               "ratio": est / got, "fits": fake["fits"],
+               "capacity_bytes": fake["capacity_bytes"],
+               "flops": fake["cost"]["flops"],
+               "real_flops": real["cost"]["flops"],
+               "bytes_accessed": fake["cost"]["bytes accessed"],
+               "argument_bytes": fake["memory"]["argument_bytes"],
+               "temp_bytes": fake["memory"]["temp_bytes"],
+               "tracked_real_bytes": real["memory"]["peak_bytes"],
+               "trace_s": fake["trace_s"], "real_step_s": real["trace_s"],
+               "launches": launches}
+        check(estimate_holds(est, got),
+              f"{arch}/{shape}: estimate {est:.0f} B, measured {got:.0f} B")
+        check(row["flops"] == row["real_flops"],
+              f"{arch}/{shape}: {row['flops']} FLOPs faked, "
+              f"{row['real_flops']} real")
+        if "cache_bytes" in fake:
+            row["without_cache_bytes"] = est - fake["cache_bytes"]
+            row["without_cache_refused"] = not estimate_holds(
+                row["without_cache_bytes"], got)
+            check(row["without_cache_refused"],
+                  f"{arch}/{shape}: the check passes an estimate without "
+                  f"the KV cache")
+        out[f"{arch}/{shape}"] = row
+        emit("dryrun", cell=f"{arch}/{shape}", **row)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4740,6 +4891,8 @@ def main() -> int:
                   flops)
     timed("gnn_small", phase_gnn_small, dev)
     timed("gnn_serve", phase_gnn_serve, dev)
+    dry = timed("dryrun", phase_dryrun, dev)
+    timed("dispatch", dispatch_cost, dev)
     emit("done", seconds=time.perf_counter() - t_start, phase_s=phase_s)
 
     r = rows[10]
@@ -4791,10 +4944,13 @@ def main() -> int:
                   "P.V (P as bf16 hi + lo: in rows 8-15 of the m16 tile "
                   "at G <= 8, two products a V fragment at 9 <= G <= 16)",
         "launches": lm["calls"][0]["launches"]
-        + moe["calls"][0]["launches"] + moe3["calls"][0]["launches"],
+        + moe["calls"][0]["launches"] + moe3["calls"][0]["launches"]
+        + sum(r["launches"]["gqa_decode"] for r in dry.values()),
         "launches_by_path": {"lm_serve": lm["calls"][0]["launches"],
                              "moe_serve": moe["calls"][0]["launches"],
-                             "moe_serve_qwen3": moe3["calls"][0]["launches"]},
+                             "moe_serve_qwen3": moe3["calls"][0]["launches"],
+                             "dryrun": sum(r["launches"]["gqa_decode"]
+                                           for r in dry.values())},
         "max_abs_err": max(decode_err, *(deploy[c]["max_abs_err"]
                                          for c in ("32k", "500k",
                                                    "32k_g1", "32k_g16"))),
@@ -4821,7 +4977,10 @@ def main() -> int:
                   "items of a bag), the next step's ids loaded under "
                   "this step's rows",
         "launches": sum(c["launches"] for r in recsys.values()
-                        for c in r["cells"].values()),
+                        for c in r["cells"].values())
+        + sum(r["launches"]["embedding_bag"] for r in dry.values()),
+        "dryrun_launches": sum(r["launches"]["embedding_bag"]
+                               for r in dry.values()),
         "max_abs_err": max(bag_err, *(r["max_abs_err"]
                                       for r in bags.values())),
         "ms": bag["kernel_ms"], "kernel_ms": bag["kernel_ms"],

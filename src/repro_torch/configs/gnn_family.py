@@ -12,11 +12,12 @@ equivariant tensor products consume) plus optional high-dimensional
 features; the classification shapes use a node-classification head.
 
 :func:`cfg_for_cell` gives a cell's config (its head and input width),
-:func:`smoke_batch` the reference's smoke batch and :func:`loss_fn` its
-loss; the reference's ``serve_fn`` is
-:func:`repro_torch.models.nequip.classify`.  The ``ArchSpec`` registry
-and the dry-run cells (``gnn_cells``, built on ``jax.eval_shape``) are
-not ported; :func:`get_config` looks a configuration up by name.
+:func:`gnn_smoke_batch` the reference's smoke batch, :func:`loss_fn` its
+loss and :func:`serve` its ``serve_fn``
+(:func:`repro_torch.models.nequip.classify`); :data:`GNN_SPECS` holds the
+``ArchSpec`` (:func:`make_gnn_spec`) with the four cells
+(:func:`gnn_cells`), and :func:`get_config` looks a configuration up by
+name.
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ import torch
 
 from repro_torch.data import synth
 from repro_torch.models import nequip as NQ
+
+from .base import ArchSpec, Cell, f32, i32, sds
 
 
 def _pad512(n: int) -> int:
@@ -51,6 +54,28 @@ SHAPES = {
     "molecule": dict(n=_pad512(128 * 30), e=_pad512(128 * 64), d_feat=0,
                      n_classes=0, kind="train", n_graphs=128),
 }
+
+def gnn_cells(cfg: NQ.NequipConfig) -> Dict[str, Cell]:
+    cells = {}
+    for name, sh in SHAPES.items():
+        specs = {
+            "positions": sds((sh["n"], 3), f32),
+            "species": sds((sh["n"],), i32),
+            "senders": sds((sh["e"],), i32),
+            "receivers": sds((sh["e"],), i32),
+        }
+        if sh["n_classes"]:
+            specs["node_feats"] = sds((sh["n"], sh["d_feat"]), f32)
+            specs["labels"] = sds((sh["n"],), i32)
+            specs["label_mask"] = sds((sh["n"],), f32)
+        else:
+            specs["graph_ids"] = sds((sh["n"],), i32)
+            specs["energies"] = sds((sh["n_graphs"],), f32)
+            specs["forces"] = sds((sh["n"], 3), f32)
+        cells[name] = Cell(name, "train", specs,
+                           note=f"{sh['n']} nodes / {sh['e']} edges")
+    return cells
+
 
 NEQUIP = NQ.NequipConfig(name="nequip", n_layers=5, d_hidden=32, l_max=2,
                          n_rbf=8, cutoff=5.0)
@@ -78,8 +103,8 @@ def cfg_for_cell(cfg: NQ.NequipConfig, shape_name: str) -> NQ.NequipConfig:
                                n_classes=sh["n_classes"])
 
 
-def smoke_batch(cfg: NQ.NequipConfig, kind: str = "train",
-                seed: int = 0) -> Dict[str, np.ndarray]:
+def gnn_smoke_batch(cfg: NQ.NequipConfig, kind: str = "train",
+                    seed: int = 0) -> Dict[str, np.ndarray]:
     """The reference's ``gnn_smoke_batch`` (numpy): a random graph of 64
     nodes and 256 edges with the config's features and classes, or, for a
     config without classes, 4 molecules of 8 nodes and 16 edges."""
@@ -89,12 +114,38 @@ def smoke_batch(cfg: NQ.NequipConfig, kind: str = "train",
     return synth.molecule_batch(seed, batch=4, n_nodes=8, n_edges=16)
 
 
+def _on_device(model: NQ.Nequip, batch: Mapping) -> dict:
+    """``batch`` with its arrays as tensors on the model's device (scalars
+    such as ``n_graphs`` stay as they are)."""
+    dev = model.device
+    return {k: v if np.isscalar(v) else torch.as_tensor(v, device=dev)
+            for k, v in batch.items()}
+
+
 def loss_fn(model: NQ.Nequip, batch: Mapping) -> torch.Tensor:
     """The training loss on ``batch`` (numpy arrays are copied to the
-    model's device; scalars such as ``n_graphs`` stay as they are): energy
-    and force MSE for molecules, masked cross entropy for node
-    classification."""
-    dev = model.device
-    return NQ.loss_fn(model, {
-        k: v if np.isscalar(v) else torch.as_tensor(v, device=dev)
-        for k, v in batch.items()})
+    model's device): energy and force MSE for molecules, masked cross
+    entropy for node classification."""
+    return NQ.loss_fn(model, _on_device(model, batch))
+
+
+def serve(model: NQ.Nequip, batch: Mapping) -> torch.Tensor:
+    """The reference's ``serve_fn``: node logits [N, n_classes] of
+    ``classify`` on ``batch`` (numpy arrays are copied to the model's
+    device)."""
+    b = _on_device(model, batch)
+    return NQ.classify(model, b["positions"], b["species"], b["senders"],
+                       b["receivers"], b.get("node_feats"))
+
+
+def make_gnn_spec() -> ArchSpec:
+    return ArchSpec(
+        name="nequip", family="gnn", config=NEQUIP, smoke_config=NEQUIP_SMOKE,
+        init_fn=NQ.init_params, build_fn=NQ.Nequip,
+        loss_fn=lambda m, c, b: loss_fn(m, b),
+        serve_fn=lambda m, c, b: serve(m, b),
+        cells=gnn_cells, smoke_batch=gnn_smoke_batch,
+    )
+
+
+GNN_SPECS = {"nequip": make_gnn_spec()}

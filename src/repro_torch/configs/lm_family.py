@@ -7,8 +7,9 @@ Shapes:
   decode_32k   one token, KV cache 32,768, batch 128   (serve: decode)
   long_500k    one token, KV cache 524,288, batch 1    (serve: decode)
 
-The JAX package's ``ArchSpec`` registry (built on ``jax.eval_shape`` for
-its dry run) is not ported; :func:`get_config` looks a configuration up by
+:data:`LM_SPECS` holds each config's ``ArchSpec`` (:func:`make_lm_spec`),
+with its four cells (:func:`lm_cells`) and the decode cells' cache
+(:func:`lm_cache_spec`); :func:`get_config` looks a configuration up by
 name.  For training, :func:`smoke_batch` is the reference's smoke batch
 (``lm_smoke_batch``) and :func:`loss_fn` its ``loss_fn``.
 """
@@ -24,12 +25,40 @@ from repro_torch.data import synth
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import MoEConfig, TransformerConfig
 
+from .base import ArchSpec, Cell, i32, sds
+
 SHAPES = {
     "train_4k": dict(seq=4096, batch=256, kind="train"),
     "prefill_32k": dict(seq=32_768, batch=32, kind="serve_prefill"),
     "decode_32k": dict(seq=32_768, batch=128, kind="serve_decode"),
     "long_500k": dict(seq=524_288, batch=1, kind="serve_decode"),
 }
+
+
+def lm_cells(cfg: TransformerConfig) -> Dict[str, Cell]:
+    cells = {}
+    for name, sh in SHAPES.items():
+        if sh["kind"] == "train":
+            specs = {"tokens": sds((sh["batch"], sh["seq"]), i32),
+                     "labels": sds((sh["batch"], sh["seq"]), i32)}
+            cells[name] = Cell(name, "train", specs)
+        elif sh["kind"] == "serve_prefill":
+            specs = {"tokens": sds((sh["batch"], sh["seq"]), i32)}
+            cells[name] = Cell(name, "serve", specs, note="prefill")
+        else:
+            specs = {"tokens": sds((sh["batch"],), i32)}
+            cells[name] = Cell(name, "serve", specs,
+                               note=f"decode kv={sh['seq']}")
+    return cells
+
+
+def lm_cache_spec(cfg: TransformerConfig, batch: int, seq: int):
+    """The KV cache of a decode cell (``T.init_cache``'s) as meta
+    tensors."""
+    shape = (cfg.n_layers, batch, seq, cfg.n_kv_heads, cfg.head_dim)
+    dt = cfg.torch_dtype
+    return {"k": sds(shape, dt), "v": sds(shape, dt),
+            "length": sds((batch,), i32)}
 
 
 def _smoke(cfg: TransformerConfig, **over) -> TransformerConfig:
@@ -109,3 +138,16 @@ def loss_fn(model: T.Transformer, batch) -> torch.Tensor:
     return T.loss_fn(model, {k: torch.as_tensor(v, device=dev).long()
                              for k, v in batch.items()
                              if k in ("tokens", "labels")})
+
+
+def make_lm_spec(cfg: TransformerConfig) -> ArchSpec:
+    return ArchSpec(
+        name=cfg.name, family="lm", config=cfg, smoke_config=_smoke(cfg),
+        init_fn=T.init_params, build_fn=T.Transformer,
+        loss_fn=lambda m, c, b: loss_fn(m, b),
+        serve_fn=None,  # family dispatch in launch.dryrun (prefill, decode)
+        cells=lm_cells, smoke_batch=smoke_batch, cache_spec=lm_cache_spec,
+    )
+
+
+LM_SPECS = {name: make_lm_spec(c) for name, c in CONFIGS.items()}

@@ -10,8 +10,9 @@ smoke configs, serving entry point, training batches and losses
 :func:`serve` computes what the reference's ``ArchSpec.serve_fn`` of each
 architecture computes, :func:`loss_fn` what its ``loss_fn`` computes, and
 :func:`train_batch` makes a ``train_batch`` (65,536) batch of the synth
-generators at a configuration's sizes.  The ``ArchSpec`` registry and the
-dry-run cells (built on ``jax.eval_shape``) are not ported;
+generators at a configuration's sizes.  :data:`RECSYS_SPECS` holds each
+architecture's ``ArchSpec`` with its four cells (``dlrm_cells``,
+``xdeepfm_cells``, ``twotower_cells``, ``sasrec_cells``);
 :func:`get_config` looks a configuration up by name.
 """
 
@@ -26,9 +27,66 @@ import torch
 from repro_torch.data import synth
 from repro_torch.models import recsys as R
 
+from .base import ArchSpec, Cell, f32, i32, sds
+
 BATCHES = {"train_batch": 65_536, "serve_p99": 512, "serve_bulk": 262_144}
 N_CAND = 1_000_000
 HIST_LEN = 8
+
+
+# --------------------------------------------------------------------- #
+def dlrm_cells(cfg: R.DLRMConfig) -> Dict[str, Cell]:
+    def specs(b):
+        return {"dense": sds((b, cfg.n_dense), f32),
+                "sparse": sds((b, cfg.n_sparse), i32),
+                "labels": sds((b,), f32)}
+    cells = {n: Cell(n, "train" if n == "train_batch" else "serve", specs(b))
+             for n, b in BATCHES.items()}
+    cells["retrieval_cand"] = Cell("retrieval_cand", "serve", specs(N_CAND),
+                                   note="1M candidate rows, one request")
+    return cells
+
+
+def xdeepfm_cells(cfg: R.XDeepFMConfig) -> Dict[str, Cell]:
+    def specs(b):
+        return {"sparse": sds((b, cfg.n_sparse), i32), "labels": sds((b,), f32)}
+    cells = {n: Cell(n, "train" if n == "train_batch" else "serve", specs(b))
+             for n, b in BATCHES.items()}
+    cells["retrieval_cand"] = Cell("retrieval_cand", "serve", specs(N_CAND),
+                                   note="1M candidate rows, one request")
+    return cells
+
+
+def twotower_cells(cfg: R.TwoTowerConfig) -> Dict[str, Cell]:
+    def specs(b):
+        return {"user_ids": sds((b,), i32),
+                "hist_ids": sds((b, HIST_LEN), i32),
+                "hist_w": sds((b, HIST_LEN), f32),
+                "item_ids": sds((b,), i32),
+                "logq": sds((b,), f32)}
+    cells = {n: Cell(n, "train" if n == "train_batch" else "serve", specs(b))
+             for n, b in BATCHES.items()}
+    cells["retrieval_cand"] = Cell(
+        "retrieval_cand", "serve",
+        {"user_ids": sds((1,), i32), "hist_ids": sds((1, HIST_LEN), i32),
+         "hist_w": sds((1, HIST_LEN), f32), "cand_ids": sds((N_CAND,), i32)},
+        note="1 query × 1M candidates, sharded matmul")
+    return cells
+
+
+def sasrec_cells(cfg: R.SASRecConfig) -> Dict[str, Cell]:
+    def specs(b):
+        return {"item_seq": sds((b, cfg.seq_len), i32),
+                "pos_items": sds((b, cfg.seq_len), i32),
+                "neg_items": sds((b, cfg.seq_len), i32)}
+    cells = {n: Cell(n, "train" if n == "train_batch" else "serve", specs(b))
+             for n, b in BATCHES.items()}
+    cells["retrieval_cand"] = Cell(
+        "retrieval_cand", "serve",
+        {"item_seq": sds((1, cfg.seq_len), i32),
+         "cand_ids": sds((N_CAND,), i32)},
+        note="1 user history × 1M candidate items")
+    return cells
 
 
 # --------------------------------------------------------------------- #
@@ -165,3 +223,20 @@ def loss_fn(name: str, model: R._Recsys, batch: Mapping) -> torch.Tensor:
     dev = model.device
     b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     return LOSSES[name](model, b)
+
+
+CELLS = {"dlrm-rm2": dlrm_cells, "xdeepfm": xdeepfm_cells,
+         "two-tower-retrieval": twotower_cells, "sasrec": sasrec_cells}
+
+
+def _spec(name: str) -> ArchSpec:
+    config, smoke, smoke_batch_fn = ARCHS[name]
+    return ArchSpec(
+        name=name, family="recsys", config=config, smoke_config=smoke,
+        init_fn=R.init_params, build_fn=R.make_model,
+        loss_fn=lambda m, c, b: loss_fn(name, m, b),
+        serve_fn=lambda m, c, b: serve(name, m, b),
+        cells=CELLS[name], smoke_batch=smoke_batch_fn)
+
+
+RECSYS_SPECS = {name: _spec(name) for name in ARCHS}

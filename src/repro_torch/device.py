@@ -30,10 +30,18 @@ def sm_count(device: torch.device) -> int:
     return _sm_count[dev]
 
 
-@functools.lru_cache(maxsize=None)
 def scalar(x: float, device: torch.device) -> torch.Tensor:
     """The float32 scalar ``x`` on ``device``, made once per (value,
     device) and never written: a tensor made from a Python number on every
     step would be copied to the card each time, and PyTorch waits for
-    that copy (a host sync)."""
+    that copy (a host sync).  Under a ``FakeTensorMode`` (a dry run) it is
+    made anew each time: a fake kept in the cache would reach a real step
+    later, and a real one would enter the fake step."""
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE):
+        return torch.tensor(x, dtype=torch.float32, device=device)
+    return _scalar(x, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _scalar(x: float, device: torch.device) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32, device=device)

@@ -6,12 +6,19 @@ tensors it computes the plain version (:func:`.ref.blockmax_scores`).
 
 The launch plan is :func:`plan`, a function of the shapes and the
 pointers' alignment alone: a warp a doc block, ``WARPS`` warps a block.
+
+The wrapper is the operator ``torch.ops.repro_torch.blockmax_scores``
+(``torch.library.custom_op``), with a fake implementation (the output's
+shape and type alone) and a FLOP formula: the function's additions, the
+term sum of every document (T·NB·BS) and of every block's upper bound
+(T·NB), pruned or not (which blocks are pruned is data).
 """
 
 import ctypes
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
@@ -47,13 +54,7 @@ def _launcher():
     return fn
 
 
-def blockmax_scores(impacts: torch.Tensor, block_max: torch.Tensor,
-                    theta: torch.Tensor) -> torch.Tensor:
-    """impacts [T, NB, BS] f32, block_max [T, NB] f32, theta [1] f32 →
-    scores [NB, BS] f32, -inf on the blocks whose upper bound is below
-    theta.  All three on one device; theta stays there.  Impacts off 16
-    bytes, or BS not a multiple of 4, take scalar loads."""
-    global launches
+def _check(impacts, block_max, theta):
     if impacts.dim() != 3 or block_max.shape != impacts.shape[:2]:
         raise ValueError(f"impacts {tuple(impacts.shape)} and block_max "
                          f"{tuple(block_max.shape)} are not [T, NB, BS] and "
@@ -67,6 +68,17 @@ def blockmax_scores(impacts: torch.Tensor, block_max: torch.Tensor,
         if x.device != impacts.device:
             raise ValueError(f"{name} is on {x.device}, impacts on "
                              f"{impacts.device}")
+
+
+@torch.library.custom_op("repro_torch::blockmax_scores", mutates_args=())
+def blockmax_scores(impacts: torch.Tensor, block_max: torch.Tensor,
+                    theta: torch.Tensor) -> torch.Tensor:
+    """impacts [T, NB, BS] f32, block_max [T, NB] f32, theta [1] f32 →
+    scores [NB, BS] f32, -inf on the blocks whose upper bound is below
+    theta.  All three on one device; theta stays there.  Impacts off 16
+    bytes, or BS not a multiple of 4, take scalar loads."""
+    global launches
+    _check(impacts, block_max, theta)
     if impacts.device.type == "cpu":
         return blockmax_scores_plain(impacts, block_max, theta)
     if impacts.device.type != "cuda":
@@ -90,3 +102,15 @@ def blockmax_scores(impacts: torch.Tensor, block_max: torch.Tensor,
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+@blockmax_scores.register_fake
+def _blockmax_scores_fake(impacts, block_max, theta):
+    _check(impacts, block_max, theta)
+    return impacts.new_empty(impacts.shape[1:])
+
+
+@register_flop_formula(torch.ops.repro_torch.blockmax_scores)
+def _blockmax_scores_flops(impacts_shape, *args, **kwargs) -> int:
+    t, nb, bs = impacts_shape
+    return t * nb * bs + t * nb

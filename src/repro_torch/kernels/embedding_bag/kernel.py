@@ -10,12 +10,20 @@ The launch plans are :func:`plan` and :func:`backward_plan`, functions of
 the shapes, the alignment and the card's SM count alone.  A backward call
 is one host call that launches all of its kernels (``backward_launches``
 counts it once).
+
+Each wrapper is an operator (``torch.library.custom_op``):
+``torch.ops.repro_torch.embedding_bag``, whose gradient with respect to the
+table is ``torch.ops.repro_torch.embedding_bag_backward``
+(``register_autograd``), each with a fake implementation (the output's
+shape and type alone) and a FLOP formula of 2·B·L·D, a product and a sum
+for every item and element, whatever the ids or weights.
 """
 
 import ctypes
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.device import sm_count
 from repro_torch.kernels import build
@@ -114,6 +122,7 @@ def _check(table, indices, weights, what: str = "table"):
             raise ValueError(f"{name} must be contiguous")
 
 
+@torch.library.custom_op("repro_torch::embedding_bag", mutates_args=())
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   weights: torch.Tensor) -> torch.Tensor:
     """Weighted bags of rows: table [V, D] float32 or bfloat16; indices
@@ -224,6 +233,30 @@ def _backward_launcher():
     return fn
 
 
+@embedding_bag.register_fake
+def _embedding_bag_fake(table, indices, weights):
+    _check(table, indices, weights)
+    return table.new_empty((indices.shape[0], table.shape[1]))
+
+
+def _check_backward(grad_out, indices, weights, num_rows):
+    """The backward's checks beyond :func:`_check`'s."""
+    _check(grad_out, indices, weights, "grad_out")
+    if grad_out.shape[0] != indices.shape[0]:
+        raise ValueError(f"grad_out has {grad_out.shape[0]} bags, indices "
+                         f"{indices.shape[0]}")
+    if num_rows <= 0:
+        raise ValueError("the table has no rows (V = 0)")
+    if num_rows >= 1 << 32:
+        raise ValueError(f"{num_rows} rows: the kernel's rows are 32-bit "
+                         f"keys (at most 2^32 - 1 rows)")
+    if indices.numel() >= 1 << 31:
+        raise ValueError(f"{indices.numel()} items: the kernel indexes "
+                         f"items with int32 (B · L < 2^31)")
+
+
+@torch.library.custom_op("repro_torch::embedding_bag_backward",
+                         mutates_args=())
 def embedding_bag_backward(grad_out: torch.Tensor, indices: torch.Tensor,
                            weights: torch.Tensor,
                            num_rows: int) -> torch.Tensor:
@@ -241,18 +274,7 @@ def embedding_bag_backward(grad_out: torch.Tensor, indices: torch.Tensor,
     :func:`.ref.embedding_bag_backward_sorted_ref` adds in the kernel's
     order."""
     global backward_launches
-    _check(grad_out, indices, weights, "grad_out")
-    if grad_out.shape[0] != indices.shape[0]:
-        raise ValueError(f"grad_out has {grad_out.shape[0]} bags, indices "
-                         f"{indices.shape[0]}")
-    if num_rows <= 0:
-        raise ValueError("the table has no rows (V = 0)")
-    if num_rows >= 1 << 32:
-        raise ValueError(f"{num_rows} rows: the kernel's rows are 32-bit "
-                         f"keys (at most 2^32 - 1 rows)")
-    if indices.numel() >= 1 << 31:
-        raise ValueError(f"{indices.numel()} items: the kernel indexes "
-                         f"items with int32 (B · L < 2^31)")
+    _check_backward(grad_out, indices, weights, num_rows)
     dtype = grad_out.dtype
     if grad_out.device.type == "cpu":
         return embedding_bag_backward_ref(grad_out, indices, weights,
@@ -283,3 +305,34 @@ def embedding_bag_backward(grad_out: torch.Tensor, indices: torch.Tensor,
                            f"{err}")
     backward_launches += 1
     return grad.to(dtype)
+
+
+@embedding_bag_backward.register_fake
+def _embedding_bag_backward_fake(grad_out, indices, weights, num_rows):
+    _check_backward(grad_out, indices, weights, num_rows)
+    return grad_out.new_empty((num_rows, grad_out.shape[1]))
+
+
+def _setup_context(ctx, inputs, output):
+    table, indices, weights = inputs
+    ctx.save_for_backward(indices, weights)
+    ctx.num_rows = table.shape[0]
+
+
+def _backward(ctx, grad_out):
+    indices, weights = ctx.saved_tensors
+    grad = embedding_bag_backward(grad_out.contiguous(), indices, weights,
+                                  ctx.num_rows)
+    return grad, None, None
+
+
+embedding_bag.register_autograd(_backward, setup_context=_setup_context)
+
+
+@register_flop_formula([torch.ops.repro_torch.embedding_bag,
+                        torch.ops.repro_torch.embedding_bag_backward])
+def _embedding_bag_flops(first_shape, indices_shape, *args, **kwargs) -> int:
+    """For the forward, ``first_shape`` is the table's [V, D]; for the
+    backward, grad_out's [B, D]: D is the last either way."""
+    b, l = indices_shape
+    return 2 * b * l * first_shape[-1]

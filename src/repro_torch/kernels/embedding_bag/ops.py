@@ -7,27 +7,6 @@ import torch
 from . import kernel
 
 
-class EmbeddingBag(torch.autograd.Function):
-    """The bag lookup with its gradient: the forward is
-    :func:`kernel.embedding_bag`, the table's gradient
-    :func:`kernel.embedding_bag_backward` (each a kernel launch on the
-    card, the plain version on the CPU).  Indices and weights get no
-    gradient."""
-
-    @staticmethod
-    def forward(ctx, table, indices, weights):
-        ctx.save_for_backward(indices, weights)
-        ctx.num_rows = table.shape[0]
-        return kernel.embedding_bag(table, indices, weights)
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        indices, weights = ctx.saved_tensors
-        grad = kernel.embedding_bag_backward(
-            grad_out.contiguous(), indices, weights, ctx.num_rows)
-        return grad, None, None
-
-
 def embedding_bag_padded(table: torch.Tensor, indices: torch.Tensor,
                          weights: torch.Tensor) -> torch.Tensor:
     """Padded-bag lookup: table [V, D]; indices [B, L] (0-padded); weights
@@ -35,12 +14,13 @@ def embedding_bag_padded(table: torch.Tensor, indices: torch.Tensor,
     int32 and weights float32, as the Pallas wrapper casts them; the
     kernels' wrappers then launch on the card and take the plain versions
     on the CPU (there is no switch).  The table's gradient, where autograd
-    asks for one, is the backward kernel's; weights that require a
-    gradient are refused (no model trains its bag weights)."""
+    asks for one, is the backward kernel's (the operator's
+    ``register_autograd``; indices and weights get none); weights that
+    require a gradient are refused (no model trains its bag weights)."""
     if weights.requires_grad:
         raise ValueError("bag weights that require a gradient are not "
                          "supported: the backward gives the table's only")
-    return EmbeddingBag.apply(
+    return kernel.embedding_bag(
         table, indices.to(torch.int32).contiguous(),
         weights.to(torch.float32).contiguous())
 

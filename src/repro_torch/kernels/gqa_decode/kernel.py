@@ -5,6 +5,13 @@ for CPU tensors it computes the plain version (:mod:`.ref`).  ``launches``
 counts wrapper calls that launched the kernel (its partial and combine
 passes count as one), and nothing else.
 
+The wrapper is the operator ``torch.ops.repro_torch.gqa_decode``
+(``torch.library.custom_op``): its fake implementation gives the output's
+shape and type from the inputs' alone, so a fake or meta tensor passes
+through it (``launch.dryrun``), and its FLOP formula counts the
+function's products, 4·B·Hkv·G·S·D over the cache's full S (``length`` is
+data, so the positions it masks count too).
+
 The kernel has two partial passes, chosen by :func:`path` from the dtype
 and D alone, at every G from 1 to 16: ``MMA`` (bfloat16, D ≤ 128: K/V
 tiles through a shared-memory ring fed by ``cp.async`` copies, both
@@ -19,6 +26,7 @@ import ctypes
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.device import sm_count
 from repro_torch.kernels import build
@@ -133,6 +141,7 @@ def _check(q, k, v, length):
             raise ValueError(f"{name} must be contiguous")
 
 
+@torch.library.custom_op("repro_torch::gqa_decode", mutates_args=())
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                length: torch.Tensor) -> torch.Tensor:
     """Attention of one query token per sequence against its KV cache.
@@ -153,6 +162,20 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     return _launch(q, k, v, length, path(q.dtype, q.shape[-1]))
+
+
+@gqa_decode.register_fake
+def _gqa_decode_fake(q, k, v, length):
+    _check(q, k, v, length)
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.gqa_decode)
+def _gqa_decode_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """q·K and P·V: 2·D operations each, for every query row and cache
+    position."""
+    b, hkv, g, d = q_shape
+    return 4 * b * hkv * g * k_shape[1] * d
 
 
 def _launch(q, k, v, length, kind: str) -> torch.Tensor:

@@ -9,12 +9,19 @@ pointers' alignment alone: a tile of A a block, and a window budget — the
 most entries of B a tile's window may hold and still be searched in shared
 memory.  :func:`tile_paths` says, from the lists alone, which path each
 tile takes under a plan.
+
+The wrapper is the operator ``torch.ops.repro_torch.interval_join``
+(``torch.library.custom_op``; it mutates ``counts``), with a fake
+implementation (the mask's shape and type alone) and a FLOP formula of 0:
+the join searches and compares integers, and does no floating-point
+operation.
 """
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.core.vectorized import PAD
 from repro_torch.kernels import build
@@ -111,9 +118,23 @@ def _launcher():
     return fn
 
 
+def _check(a_s, a_e, b_s, b_e, mode):
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
+    for name, x, like in (("a_s", a_s, a_s), ("a_e", a_e, a_s),
+                          ("b_s", b_s, b_s), ("b_e", b_e, b_s)):
+        if x.dim() != 1 or x.shape != like.shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}: starts and "
+                             f"ends must be 1-D and of one length")
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+        if x.device != a_s.device:
+            raise ValueError(f"{name} is on {x.device}, a_s on {a_s.device}")
+
+
 def interval_join(a_s: torch.Tensor, a_e: torch.Tensor, b_s: torch.Tensor,
                   b_e: torch.Tensor, mode: str = "contained_in",
-                  counts: torch.Tensor = None) -> torch.Tensor:
+                  counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Containment join over packed lists → int32 mask [NA].
 
     ``mode="contained_in"``: mask[i] = 1 iff some B[j] has
@@ -131,18 +152,20 @@ def interval_join(a_s: torch.Tensor, a_e: torch.Tensor, b_s: torch.Tensor,
     the kernel's tiles by path: staged, device memory, nothing to search
     (see :func:`tile_paths`).
     """
+    return interval_join_op(a_s, a_e, b_s, b_e, mode, counts)
+
+
+# the operator's argument is ``join_mode``: an argument named ``mode``
+# collides with the dispatcher's own in AOT tracing
+@torch.library.custom_op("repro_torch::interval_join",
+                         mutates_args=("counts",))
+def interval_join_op(a_s: torch.Tensor, a_e: torch.Tensor, b_s: torch.Tensor,
+                     b_e: torch.Tensor, join_mode: str,
+                     counts: Optional[torch.Tensor]) -> torch.Tensor:
+    """:func:`interval_join` as an operator (eager implementation)."""
     global launches
-    if mode not in MODES:
-        raise ValueError(f"mode must be one of {sorted(MODES)}, got {mode!r}")
-    for name, x, like in (("a_s", a_s, a_s), ("a_e", a_e, a_s),
-                          ("b_s", b_s, b_s), ("b_e", b_e, b_s)):
-        if x.dim() != 1 or x.shape != like.shape:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}: starts and "
-                             f"ends must be 1-D and of one length")
-        if x.dtype != torch.int32:
-            raise TypeError(f"{name} must be int32, got {x.dtype}")
-        if x.device != a_s.device:
-            raise ValueError(f"{name} is on {x.device}, a_s on {a_s.device}")
+    mode = join_mode
+    _check(a_s, a_e, b_s, b_e, mode)
     if a_s.device.type == "cpu":
         if counts is not None:
             raise ValueError("counts are the kernel's: the CPU path has none")
@@ -181,3 +204,14 @@ def interval_join(a_s: torch.Tensor, a_e: torch.Tensor, b_s: torch.Tensor,
         counts[1] += 1                      # design's kernel
     launches += 1
     return out
+
+
+@interval_join_op.register_fake
+def _interval_join_fake(a_s, a_e, b_s, b_e, join_mode, counts):
+    _check(a_s, a_e, b_s, b_e, join_mode)
+    return torch.empty_like(a_s)
+
+
+@register_flop_formula(torch.ops.repro_torch.interval_join)
+def _interval_join_flops(*args, **kwargs) -> int:
+    return 0

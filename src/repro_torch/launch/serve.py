@@ -10,8 +10,9 @@
 ``--mode retrieval`` (the default) indexes ``--docs`` seeded documents and
 serves BM25 queries, from a ``ShardedWarren`` of ``--shards`` groups served
 natively when ``--shards`` > 1; ``--mode lm`` decodes four prompts through
-``LMServer`` with the smoke config of ``--arch`` and random weights from
-``--seed``.  Runs on the card unless ``--device cpu`` is given.
+``LMServer`` with the smoke config of ``--arch`` (an LM of the ``ArchSpec``
+registry) and random weights from ``--seed``.  Runs on the card unless
+``--device cpu`` is given.
 """
 
 import argparse
@@ -21,15 +22,17 @@ import time
 def serve_lm(args):
     import torch
 
-    from repro_torch.configs.lm_family import get_config
+    from repro_torch.configs import get_arch
     from repro_torch.device import resolve_device
-    from repro_torch.models.transformer import init_params
     from repro_torch.serve import LMServer
+    spec = get_arch(args.arch)
+    if spec.family != "lm":
+        raise SystemExit(f"--mode lm needs an LM arch, not {args.arch}")
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch, smoke=True)
+    cfg = spec.smoke_config
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    model = init_params(cfg, gen, dev)
+    model = spec.init_fn(cfg, gen, dev)
     server = LMServer(model, max_slots=4, max_len=64, device=dev)
     prompts = [[1, 5, 9], [2, 7], [3, 3, 3, 3], [4]]
     t0 = time.time()

@@ -1,6 +1,6 @@
 """Training launcher: ``--arch <name>`` at its smoke config, an LM, a
-recsys model or NequIP looked up with ``get_config``
-(``src/repro/launch/train.py``).
+recsys model or NequIP looked up in the ``ArchSpec`` registry
+(``get_arch``, as ``src/repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch nequip \
@@ -29,26 +29,14 @@ INDEX_BATCH = 4
 INDEX_SEQ = 64
 
 
-def _model_and_loss(arch: str, dev, seed: int):
+def _model_and_loss(spec, dev, seed: int):
     import torch
-
-    from repro_torch.configs import gnn_family, lm_family, recsys_family
-    from repro_torch.models import nequip, recsys, transformer
+    cfg = spec.smoke_config
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    if arch in lm_family.CONFIGS:
-        cfg = lm_family.get_config(arch, smoke=True)
-        return (cfg, transformer.init_params(cfg, gen, dev),
-                lm_family.loss_fn,
-                lambda s: lm_family.smoke_batch(cfg, "train", seed=s))
-    if arch in gnn_family.ARCHS:
-        cfg = gnn_family.get_config(arch, smoke=True)
-        return (cfg, nequip.init_params(cfg, gen, dev), gnn_family.loss_fn,
-                lambda s: gnn_family.smoke_batch(cfg, "train", seed=s))
-    cfg = recsys_family.get_config(arch, smoke=True)
-    return (cfg, recsys.init_params(cfg, gen, dev),
-            lambda m, b: recsys_family.loss_fn(arch, m, b),
-            lambda s: recsys_family.smoke_batch(arch, "train", seed=s))
+    return (cfg, spec.init_fn(cfg, gen, dev),
+            lambda m, b: spec.loss_fn(m, cfg, b),
+            lambda s: spec.smoke_batch(cfg, "train", s))
 
 
 def _batches(make):
@@ -72,15 +60,16 @@ def main(argv=None):
                     help="inject a failure once (--index-backed)")
     args = ap.parse_args(argv)
 
-    from repro_torch.configs import lm_family
+    from repro_torch.configs import get_arch
     from repro_torch.device import resolve_device
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
+    spec = get_arch(args.arch)
     dev = resolve_device(args.device)
-    if args.index_backed and args.arch not in lm_family.CONFIGS:
+    if args.index_backed and spec.family != "lm":
         raise SystemExit("--index-backed needs an LM config")
 
-    cfg, model, loss_fn, make_batch = _model_and_loss(args.arch, dev, SEED)
+    cfg, model, loss_fn, make_batch = _model_and_loss(spec, dev, SEED)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"{args.arch} (smoke config {cfg.name}) on {dev}: "
           f"{n_params / 1e6:.2f}M params")

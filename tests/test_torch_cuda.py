@@ -751,3 +751,76 @@ def test_sharded_pipeline_syncs_once_per_batch(cuda_device, sharded_warren):
         host.close()
     assert got == want
     assert two - one == Counter({"cudaStreamSynchronize": 1}), (one, two)
+
+
+# the kernels as operators: the card's fakes, and the FLOP counter on real
+# and fake tensors
+def _op_args(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    a_s = torch.tensor([1, 5, 9, 12], dtype=torch.int32, device=dev)
+    b_s = torch.tensor([0, 4, 11], dtype=torch.int32, device=dev)
+    ids = torch.randint(0, 30, (5, 3), generator=g, device=dev,
+                        dtype=torch.int32)
+    w = torch.rand((5, 3), generator=g, device=dev)
+    return [
+        (gqa_kernel.gqa_decode, (
+            torch.randn((2, 2, 3, 64), generator=g, device=dev).bfloat16(),
+            torch.randn((2, 300, 2, 64), generator=g, device=dev).bfloat16(),
+            torch.randn((2, 300, 2, 64), generator=g, device=dev).bfloat16(),
+            torch.tensor([300, 17], dtype=torch.int32, device=dev))),
+        (bag_kernel.embedding_bag, (
+            torch.randn((30, 8), generator=g, device=dev), ids, w)),
+        (bag_kernel.embedding_bag_backward, (
+            torch.randn((5, 8), generator=g, device=dev), ids, w, 30)),
+        (join_kernel.interval_join_op, (a_s, a_s + 2, b_s, b_s + 3,
+                                        "contained_in", None)),
+        (kernel.blockmax_scores, (
+            torch.rand((3, 4, 8), generator=g, device=dev),
+            torch.rand((3, 4), generator=g, device=dev),
+            torch.tensor([1.0], device=dev))),
+    ]
+
+
+def test_operators_on_the_card_s_fakes_and_flop_counts(cuda_device):
+    """Each operator on CUDA fakes gives the eager output's shape, dtype
+    and device without launching, and ``FlopCounterMode`` counts the same
+    on the real and the fake call."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    for op, args in _op_args(cuda_device):
+        with FlopCounterMode(display=False) as real_count:
+            want = op(*args)
+        torch.cuda.synchronize()
+        with FakeTensorMode() as mode:
+            fakes = [mode.from_tensor(a) if isinstance(a, torch.Tensor)
+                     else a for a in args]
+            counts = (gqa_kernel.launches, bag_kernel.launches,
+                      bag_kernel.backward_launches, join_kernel.launches,
+                      kernel.launches)
+            with FlopCounterMode(display=False) as fake_count:
+                got = op(*fakes)
+            assert counts == (gqa_kernel.launches, bag_kernel.launches,
+                              bag_kernel.backward_launches,
+                              join_kernel.launches, kernel.launches)
+        assert (got.shape, got.dtype, got.device) == (
+            want.shape, want.dtype, want.device), op
+        assert fake_count.get_total_flops() == \
+            real_count.get_total_flops(), op
+
+
+def test_dry_run_cell_on_the_card_s_fakes_and_for_real(cuda_device):
+    """``run_cell`` at DLRM's smoke config on serve_p99: on the card's fakes
+    and for real, the same FLOPs and an estimate within the phase's
+    rule of the allocator's peak."""
+    from repro_torch.launch import dryrun
+    cfg = recsys_family.get_config("dlrm-rm2", smoke=True)
+    fake = dryrun.run_cell("dlrm-rm2", "serve_p99", cuda_device, cfg)
+    real = dryrun.run_cell("dlrm-rm2", "serve_p99", cuda_device, cfg,
+                           seed=0)
+    assert fake["ok"] and real["ok"], (fake.get("traceback"),
+                                       real.get("traceback"))
+    assert fake["mesh"] == "cudax1"
+    assert fake["cost"]["flops"] == real["cost"]["flops"] > 0
+    assert chip_smoke.estimate_holds(
+        fake["memory"]["peak_bytes"],
+        real["memory"]["allocator_peak_bytes"])

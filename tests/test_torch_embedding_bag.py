@@ -194,8 +194,14 @@ def test_wrapper_checks_and_counts_no_launch_on_the_cpu():
         embedding_bag(table.t().contiguous().t(), idx, w)
     with pytest.raises(ValueError, match="contiguous"):
         embedding_bag(table, idx.t().contiguous().t(), w.t().contiguous().t())
+    # a meta tensor takes the operator's fake implementation (shape and
+    # type only); the eager implementation has no kernel for it
+    out = embedding_bag(table.to("meta"), idx.to("meta"), w.to("meta"))
+    assert (out.device.type, out.shape, out.dtype) == (
+        "meta", (idx.shape[0], table.shape[1]), table.dtype)
     with pytest.raises(ValueError, match="no kernel"):
-        embedding_bag(table.to("meta"), idx.to("meta"), w.to("meta"))
+        embedding_bag._init_fn(table.to("meta"), idx.to("meta"),
+                               w.to("meta"))
 
 
 def test_ops_casts_as_the_pallas_wrapper():

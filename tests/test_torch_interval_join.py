@@ -178,7 +178,15 @@ def test_wrapper_rejects_bad_inputs(case):
     elif case == "devices":
         args[2] = args[3] = torch.empty(3, dtype=torch.int32, device="meta")
     else:
+        # a meta tensor takes the operator's fake implementation (shape and
+        # type only); the eager implementation has no kernel for it
         args = [torch.empty(3, dtype=torch.int32, device="meta")] * 4
+        out = interval_join(*args)
+        assert (out.device.type, out.shape, out.dtype) == (
+            "meta", (3,), torch.int32)
+        with pytest.raises(err, match="no kernel"):
+            join_kernel.interval_join_op._init_fn(*args, "contained_in", None)
+        return
     with pytest.raises(err):
         interval_join(*args, **kwargs)
 

@@ -206,7 +206,7 @@ def test_configs_equal_jax_field_by_field():
 def test_smoke_batch_is_the_reference_s(seed):
     for cfg in (SMOKE, MOLECULE):
         want = JG.gnn_smoke_batch(_jcfg(cfg), "train", seed)
-        got = TG.smoke_batch(cfg, "train", seed)
+        got = TG.gnn_smoke_batch(cfg, "train", seed)
         assert sorted(got) == sorted(want)
         for k in want:
             np.testing.assert_array_equal(np.asarray(got[k]),
@@ -411,7 +411,7 @@ def test_trainer_steps_match_reference(cfg):
     runs that move a coordinate in opposite directions can differ by."""
     jcfg, params, model = _setup(cfg, seed=0)
     np_params = jax.tree.map(np.array, params)
-    batches = [TG.smoke_batch(cfg, "train", seed=s) for s in range(STEPS)]
+    batches = [TG.gnn_smoke_batch(cfg, "train", seed=s) for s in range(STEPS)]
     jbatches = [{k: v if np.isscalar(v) else jnp.asarray(v)
                  for k, v in b.items()} for b in batches]
     ref32 = _ref_run(jcfg, jax.tree.map(jnp.asarray, np_params), jbatches)
