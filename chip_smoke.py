@@ -17,7 +17,7 @@ non-zero:
    boundary, BS off the warp width, k above the positive docs, T = 0) and
    at the kernel's edges (T = 17, BS = 132 and 96, NB off the block,
    impacts off 16 bytes);
-2. ranked retrieval, the first slice's main path: index 30,000 seeded
+2. ranked retrieval, the first slice's main path: index 12,000 seeded
    documents through the port's ``ingest_documents``, serve 512 queries
    from 8 client threads through ``RetrievalServer`` on the card, check
    them against the same server on the CPU (bit for bit) and against the
@@ -44,7 +44,7 @@ non-zero:
    hand on the card; the solution lists must be equal.  interval_join's
    launch count is zeroed just before and read just after, and must equal
    the containment operators run;
-6. json: the port's JSON store over ``json_collection(seed=0, scale=50)``
+6. json: the port's JSON store over ``json_collection(seed=0, scale=25)``
    with dates annotated post hoc, and the paper's nine Fig. 6 queries,
    lazy and on the card: equal counts and aggregates, query 1's values bit
    for bit;
@@ -57,21 +57,25 @@ non-zero:
    plain version, the whole vectorized operator and the memory bound;
 8. sharded: a ShardedWarren of 4 shard groups × 2 replicas (quorum
    commit, a WAL a replica written through ``core/packing.py``, async
-   scatter) over the stream's first 5,000 documents (50,000 until the
-   training slice, 10,000 until the dry run's), served natively by
+   scatter) over the stream's first 3,000 documents (50,000 until the
+   training slice, 10,000 until the dry run's, 5,000 until the mesh
+   slice's), served natively by
    ``RetrievalServer`` on the card to phase 2's 512 queries from 8 client
    threads (p50, p95, queries/s, the scatter/score/merge breakdown and the
    idle share of 64 profiled queries); held against the same server on
    the host bit for bit and against a single index's rows over the same
-   5,000 documents by
+   3,000 documents by
    (score, text), ties as sets (queries whose terms exceed the posting
    cap by a pair of uncapped servers: the cap's equal impacts keep
    address order, which differs by design); then 64 queries after each
-   of a split of the largest group (its swap_s), a demotion of another,
+   of a split of the largest group (`dist.elastic.split_shard_group`,
+   the Rebalancer's swap stall, copy and catch-up), a merge of the two
+   back (`merge_shard_groups`, the same stats), a
+   demotion of another,
    failover of every replica 0 and their resurrection (group seqnums in
    lockstep), each time card against host and against the single index;
-9. tiered: a TieredStore over the stream's first 5,000 documents, frozen
-   after each 1,000 but the last (4 runs and a hot memtable), 128
+9. tiered: a TieredStore over the stream's first 2,000 documents, frozen
+   after each 400 but the last (4 runs and a hot memtable), 128
    queries on the card before and after one ``compact_runs``, the rows a
    Warren's of the same documents: same addresses, same score bits;
 10. decode_small: the gqa_decode kernel against its plain version (on the
@@ -86,8 +90,8 @@ non-zero:
    length > S, several splits, and D = 256 at G = 16;
 11. lm_serve, the third slice's main path: Qwen2.5-14B at full width in
    bfloat16 (48 layers, random weights from the seed on the card) behind
-   ``LMServer(max_slots=8, max_len=1024)``, eight RAG-sized prompts of
-   64-256 tokens, 32 new tokens each, twice (equal tokens).  gqa_decode's
+   ``LMServer(max_slots=8, max_len=1024)``, eight prompts of 16-64
+   tokens, 32 new tokens each, twice (equal tokens).  gqa_decode's
    launch count is zeroed just before each call and read just after
    (48 × steps).  Every step's logits are held against the port's float32
    forward on the same tokens; the bfloat16 forward's distance from it
@@ -120,8 +124,9 @@ non-zero:
    bfloat16 (24 layers, 60 experts, top-4, a shared expert; random
    weights from the seed on the card, at phase 11's conditioned init: the
    logit check is blind at the reference's) behind
-   ``LMServer(max_slots=8, max_len=1024)``, eight prompts of 32-128
-   tokens (64-256 until phase 12c came), 16 new tokens each, twice (equal
+   ``LMServer(max_slots=8, max_len=1024)``, eight prompts of 8-32
+   tokens (64-256 until phase 12c came, 32-128 until phase dist), 16 new
+   tokens each, twice (equal
    tokens); gqa_decode's launch
    count zeroed just before each call and read just after (24 × steps).
    The logits are held against the same decode replayed in float32 with
@@ -137,8 +142,10 @@ non-zero:
 12c. moe_serve_qwen3: the same phase for Qwen3-MoE-235B-A22B at full
    width in bfloat16 (d_model 4096, 64 query heads on 4 KV heads: G = 16,
    128 experts, top-8) with 8 of its 94 layers (the card's memory: 42.3
-   GB), eight prompts of 64-256 tokens, 8 × steps gqa_decode launches
-   through the mma kernel's 16-row instance, C = 1; its conditioned check
+   GB), eight prompts of 64-256 tokens (the cache's data in two of
+   gqa_decode's splits at the last steps, checked), 8 × steps gqa_decode
+   launches through the mma kernel's 16-row instance, C = 1; its
+   conditioned check
    at one Qwen3-MoE layer holds the G = 16 kernel against the plain
    attention, and the decode with P rounded once to bfloat16 must fail it;
 13. bag_small: the embedding_bag kernel against its plain version (on the
@@ -225,7 +232,7 @@ non-zero:
    distances at both inputs; ``loss_fn``'s value and gradients card
    against host;
 22. gnn_serve: NequIP at its full config on two cells, the same checks:
-   minibatch_lg (a 232,965-node parent graph at mean degree 50 from
+   minibatch_lg (a 232,965-node parent graph at mean degree 25 from
    ``random_graph``, ``NeighborSampler`` of 1,024 seeds at fanout 15-10,
    ``classify`` with 602 features and 41 classes on the subgraph) and
    molecule (``molecule_batch`` of 128 molecules of 30 nodes and 64
@@ -244,7 +251,28 @@ non-zero:
 24. dispatch: the host µs a call of gqa_decode and embedding_bag through
    their operators and through their eager bodies, in turns (op, body,
    body, op): what the dispatcher adds to a call;
-25. the kernels line; the last line is ``{"ok": true, "device": ...}``.
+25. dist, the meshes, sharding and compressed reduce (slice 10): (a)
+   gqa_decode at G in {24, 40} and D in {36, 100, 320} (and 128 on the
+   mma kernel's row tiles), float32 and bfloat16, against its plain
+   version on the card and the host, each timed against it (fault (w));
+   (b) one NCCL rank over a ``file://`` store and ``make_local_mesh()``
+   over the card: InternLM2-1.8B at full width in bfloat16 from the seed
+   decodes 4 sequences (256-token prompts, then 32 new tokens, greedy) on
+   plain tensors, then again with its parameters ``reshard``-ed onto
+   ``lm_param_sharding`` and its cache onto ``lm_cache_sharding`` (DTensors
+   through the operators' sharding rules): the same tokens and every
+   step's logits bit for bit, gqa_decode 24 launches a DTensor step; (c)
+   ``cross_pod_reduce_compressed`` over a ``("pod",)`` mesh of that rank
+   on real NCCL all-reduces of its int32 lanes, InternLM2-1.8B's layer-0
+   gradient shapes from the seed: result and residual bit for bit with
+   ``decompress(compress_with_feedback(...))``, then the group is
+   destroyed; (d) the production dry run, in a subprocess started with
+   the phase (a fake group of 256 ranks cannot share a process with the
+   NCCL one) at one cell a family on the card's fakes of the 16×16 mesh:
+   InternLM2-1.8B train_4k,
+   Qwen3-MoE decode_32k, DLRM-RM2 train_batch, NequIP minibatch_lg — each
+   device's peak, fits, FLOPs and collectives;
+26. the kernels line; the last line is ``{"ok": true, "device": ...}``.
     The ``done`` line holds every phase's seconds.
 
 It needs a CUDA card and the repository's ``src/`` beside it, and exits
@@ -265,7 +293,8 @@ import time
 import numpy as np
 
 SEED = 0
-N_DOCS = 30_000           # 50,000, then 40,000 until slices 7b-8 (run time)
+N_DOCS = 12_000           # 50,000, then 40,000 until slices 7b-8, 30,000
+                          # until the mesh slice's phase dist (run time)
 N_QUERIES = 512
 N_CLIENTS = 8
 N_ORACLE = 32
@@ -275,18 +304,19 @@ T_DEPLOY = 8
 K1, B = 0.9, 0.4
 TIMED_LAUNCHES = 30
 TIE_RTOL = 1e-6
-JSON_SCALE = 50.0
+JSON_SCALE = 25.0         # 50 until the mesh slice's phase dist (run time)
 N_SHARDS = 4
 N_REPLICAS = 2
 STEP_QUERIES = 64   # after each sharded step; 128 took the run past 600 s
-SHARDED_DOCS = 5_000      # phase 8's corpus (50,000 until the training
-                          # slice, 10,000 until the dry run's)
+SHARDED_DOCS = 3_000      # phase 8's corpus (50,000 until the training
+                          # slice, 10,000 until the dry run's, 5,000 until
+                          # the mesh slice's)
 TIERED_QUERIES = 128
 K_TIES = 64
 MAX_TERMS = 8             # the server's default max_terms
 UNCAPPED = 1 << 30        # max_postings that binds no list
-TIERED_DOCS = 5_000
-FREEZE_EVERY = 1_000
+TIERED_DOCS = 2_000       # 5,000 until the mesh slice's phase dist
+FREEZE_EVERY = 400         # 1,000 at 5,000 documents
 
 
 def emit(phase: str, **fields) -> None:
@@ -1782,6 +1812,7 @@ def phase_sharded(dev, single, queries, single_rows, n_docs=N_DOCS,
     from repro_torch.core import ingest_documents
     from repro_torch.core.log import TransactionLog
     from repro_torch.data.synth import doc_generator
+    from repro_torch.dist import elastic
     from repro_torch.dist.rebalance import Rebalancer
     from repro_torch.dist.shard_router import ShardedWarren
     from repro_torch.serve import RetrievalServer
@@ -1851,7 +1882,8 @@ def phase_sharded(dev, single, queries, single_rows, n_docs=N_DOCS,
                         single_rows[lo:lo + step_queries])
 
             reb = Rebalancer(sharded)
-            new = reb.split_group(largest)
+            new = elastic.split_shard_group(sharded, largest,
+                                            rebalancer=reb)
             stats = reb.last_stats
             sharded_step("split", card, host, sharded, single,
                          *step_slice(0), dev, source=largest, new_group=new,
@@ -1860,6 +1892,18 @@ def phase_sharded(dev, single, queries, single_rows, n_docs=N_DOCS,
                          catchup_s=stats.catchup_s,
                          segments_streamed=stats.segments_streamed)
             out["swap_s"] = stats.swap_s
+            elastic.merge_shard_groups(sharded, largest, new, rebalancer=reb)
+            stats = reb.last_stats
+            check(stats.kind.startswith("merge")
+                  and sharded.groups[new].retired,
+                  f"group {new} is not retired after the merge")
+            sharded_step("merge", card, host, sharded, single,
+                         *step_slice(4), dev, dest=largest, source=new,
+                         docs_per_group=sharded.group_doc_counts(),
+                         swap_s=stats.swap_s, copy_s=stats.copy_s,
+                         catchup_s=stats.catchup_s,
+                         segments_streamed=stats.segments_streamed)
+            out["merge_swap_s"] = stats.swap_s
 
             cold = next(g for g in range(sharded.n_shards)
                         if g not in (largest, new))
@@ -2055,15 +2099,297 @@ def phase_decode_small(dev) -> float:
 
 
 # --------------------------------------------------------------------- #
+# phase dist (a): gqa_decode at any G and D (fault (w))
+# --------------------------------------------------------------------- #
+# (b, hkv, g, d, s, lengths): G above one m16 tile (row tiles on the mma
+# kernel's grid at D = 128 in bfloat16), D off a multiple of 8 (the fma
+# kernel's element loads), D above 256 (two vectors of 8 a thread, four
+# rows a launch) and above 512 (four vectors, one row a launch)
+WIDE_CASES = [(2, 2, g, d, 1100, [1100, 517]) for g in (24, 40)
+              for d in (36, 100, 128, 320)] + [
+    (2, 2, 24, 640, 1100, [1100, 517]), (2, 2, 40, 1024, 1100, [1100, 517]),
+    (1, 1, 40, 128, 4096, [4096]), (2, 1, 24, 36, 40, [0, 40]),
+    (2, 3, 17, 128, 700, [10_000, 333])]
+
+
+def phase_dist_gqa(dev) -> dict:
+    """Fault (w): the kernel against its plain version on the card and the
+    host at G in {24, 40} and D in {36, 100, 320} (and D = 128, the mma
+    kernel's row tiles; D = 640 and 1024, the fma kernel's widest
+    instance), float32 and bfloat16, each case timed against the
+    plain version; the launches counted."""
+    import torch
+    from repro_torch.kernels.gqa_decode import gqa_decode, gqa_decode_ref
+    from repro_torch.kernels.gqa_decode import kernel as gk
+    cuda = torch.device(dev).type == "cuda"
+    worst, rows = {}, []
+    gk.launches = 0
+    for dtype in DECODE_TOL:
+        tdt = getattr(torch, dtype)
+        for b, hkv, g, d, s, lengths in WIDE_CASES:
+            rng = np.random.default_rng(b * 100 + s + g + d)
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).to(tdt)
+                for shape in ((b, hkv, g, d), (b, s, hkv, d), (b, s, hkv, d)))
+            length = torch.tensor(lengths, dtype=torch.int32)
+            host = gqa_decode_ref(q, k, v, length)
+            args = [x.to(dev) for x in (q, k, v, length)]
+            got = gqa_decode(*args)
+            want = gqa_decode_ref(*args)
+            err = max(float((got.float() - want.float()).abs().max()),
+                      float((got.float().cpu() - host.float()).abs().max()))
+            case = f"{dtype} {[b, hkv, g, d, s]} length {lengths}"
+            check(got.dtype == tdt and decode_close(got, want, dtype)
+                  and decode_close(got.cpu(), host, dtype),
+                  f"gqa_decode {case}: {err} from the plain version")
+            check(all(not bool(got[i].any())
+                      for i, n in enumerate(lengths) if n == 0),
+                  f"gqa_decode {case}: length 0 must give zeros")
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            row = {"dtype": dtype, "shape": [b, hkv, g, d, s],
+                   "path": gk.path(tdt, d), "max_abs_err": err}
+            if cuda and s >= 1100:
+                row["kernel_ms"] = time_cuda(lambda: gqa_decode(*args), n=20)
+                row["plain_ms"] = time_cuda(lambda: gqa_decode_ref(*args),
+                                            n=5)
+            rows.append(row)
+    _sync(dev)
+    launches = gk.launches
+    check(not cuda or launches >= 2 * len(WIDE_CASES),
+          f"gqa_decode launched {launches} times for the wide cases")
+    emit("dist_gqa", cases=rows, launches=launches, max_abs_err=worst,
+         tolerance={k: f"rtol = atol = {v}" for k, v in DECODE_TOL.items()},
+         compared="kernel vs the plain version on the card and on the host")
+    return {"max_abs_err": max(worst.values()), "launches": launches,
+            "cases": rows}
+
+
+# --------------------------------------------------------------------- #
+# phase dist (b)-(d): DTensor decode on one NCCL rank, the cross-pod
+# reduce, the production dry run
+# --------------------------------------------------------------------- #
+DIST_ARCH = "internlm2-1.8b"
+DIST_B = 4
+DIST_PROMPT = 256
+DIST_NEW = 32
+DIST_CELLS = [("internlm2-1.8b", "train_4k"),
+              ("qwen3-moe-235b-a22b", "decode_32k"),
+              ("dlrm-rm2", "train_batch"), ("nequip", "minibatch_lg")]
+
+
+def greedy_steps(model, cache, prompts: np.ndarray, max_new: int,
+                 feed=None):
+    """LMServer.generate's greedy decode over ``prompts`` [B, P], one
+    ``decode_step`` a token: P + max_new − 1 steps, max_new new tokens a
+    sequence.  With ``feed`` (another run's fed tokens) those are fed
+    instead.  Returns (fed tokens [steps, B], logits of every step, new
+    tokens [B, max_new])."""
+    import torch
+    from repro_torch.models import transformer as T
+    dev = model.rope_cos.device
+    b, p = prompts.shape
+    tokens = torch.as_tensor(prompts[:, 0], device=dev)
+    fed, logits, new = [], [], []
+    for i in range(p + max_new - 1):
+        if feed is not None:
+            tokens = feed[i]
+        fed.append(tokens)
+        out, _ = T.decode_step(model, cache, tokens)
+        logits.append(shd_full(out))
+        nxt = out.argmax(-1)
+        nxt = shd_full(nxt)
+        if i >= p - 1:
+            new.append(nxt)
+        tokens = (torch.as_tensor(prompts[:, i + 1], device=dev)
+                  if i + 1 < p else nxt)
+    return fed, logits, torch.stack(new, 1)
+
+
+def shd_full(x):
+    """A DTensor's whole value; any other tensor as it is."""
+    from repro_torch.dist.on_mesh import is_dtensor
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def dist_decode(dev, mesh, cfg, b: int = DIST_B, prompt: int = DIST_PROMPT,
+                max_new: int = DIST_NEW) -> dict:
+    """(b): the same greedy decode on plain tensors, then with the model
+    and cache as DTensors on ``mesh`` (fed the plain run's tokens), every
+    step's logits bit for bit, the new tokens equal."""
+    import torch
+    from repro_torch.dist import elastic, sharding as shd
+    from repro_torch.dist.on_mesh import replicated_implicitly
+    from repro_torch.kernels.gqa_decode import kernel as gk
+    from repro_torch.models import transformer as T
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 26)
+    model = T.init_params(cfg, g, dev)
+    prompts = np.random.default_rng(SEED + 26).integers(
+        0, cfg.vocab, size=(b, prompt))
+    s = prompt + max_new
+    t0 = time.perf_counter()
+    fed, want, want_new = greedy_steps(model, T.init_cache(cfg, b, s, dev),
+                                       prompts, max_new)
+    _sync(dev)
+    plain_s = time.perf_counter() - t0
+    steps = len(fed)
+    places = shd.lm_param_sharding(mesh, model)
+    shd.distribute_module(model, mesh, places)
+    cache = elastic.reshard(T.init_cache(cfg, b, s, dev),
+                            shd.lm_cache_sharding(mesh, b), mesh)
+    gk.launches = 0
+    t0 = time.perf_counter()
+    with replicated_implicitly():
+        _, got, got_new = greedy_steps(model, cache, prompts, max_new,
+                                       feed=fed)
+    _sync(dev)
+    dtensor_s = time.perf_counter() - t0
+    launches = gk.launches
+    cuda = torch.device(dev).type == "cuda"
+    check(not cuda or launches == cfg.n_layers * steps,
+          f"gqa_decode launched {launches} times for {steps} DTensor steps "
+          f"of {cfg.n_layers} layers")
+    same = sum(bool(torch.equal(a, w)) for a, w in zip(got, want))
+    check(same == steps, f"DTensor logits differ from the plain decode's "
+                         f"on {steps - same} of {steps} steps")
+    check(bool(torch.equal(got_new, want_new)),
+          "DTensor decode's tokens differ from the plain decode's")
+    rec = {"arch": cfg.name, "batch": b, "prompt": prompt, "new": max_new,
+           "steps": steps, "launches": launches,
+           "logits_bit_equal_steps": same, "tokens_equal": True,
+           "plain_ms_a_step": 1e3 * plain_s / steps,
+           "dtensor_ms_a_step": 1e3 * dtensor_s / steps,
+           "param_placements": sorted({str(v) for v in places.values()}),
+           "cache_placements": {k: str(v) for k, v in
+                                shd.lm_cache_sharding(mesh, b).items()}}
+    del model, cache, want, got
+    emit("dist_decode", **rec)
+    return rec
+
+
+def dist_cross_pod(dev, cfg) -> dict:
+    """(c): the compressed reduce over a one-rank ("pod",) mesh on real
+    all-reduces, held to the single-process path bit for bit."""
+    import torch
+    from repro_torch.dist import compression as C
+    from repro_torch.launch.mesh import make_mesh_from_sizes
+    from repro_torch.models import transformer as T
+    mesh = make_mesh_from_sizes({"pod": 1}, device_type=dev.type)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 27)
+    grads = {name: torch.randn(shape, generator=g, device=dev) * 1e-3
+             for name, shape in T.layer_shapes(cfg).items()}
+    res = {k: torch.randn(v.shape, generator=g, device=dev) * 1e-6
+           for k, v in grads.items()}
+    t0 = time.perf_counter()
+    out, new_res = C.cross_pod_reduce_compressed(grads, res, mesh)
+    _sync(dev)
+    reduce_s = time.perf_counter() - t0
+    q, sc, want_res = C.compress_with_feedback(grads, res)
+    want = C.decompress(q, sc)
+    bad = [k for k in grads if not (torch.equal(out[k], want[k])
+                                    and torch.equal(new_res[k],
+                                                    want_res[k]))]
+    check(not bad, f"cross_pod_reduce_compressed differs from "
+                   f"decompress(compress_with_feedback) on {bad}")
+    values = sum(v.numel() for v in grads.values())
+    rec = {"leaves": len(grads), "values": values,
+           "payload_bytes": -(-values // 2) * 4, "reduce_ms": 1e3 * reduce_s,
+           "bit_equal": True}
+    emit("dist_cross_pod", **rec)
+    return rec
+
+
+def dist_dryrun_start(dev, cells=DIST_CELLS):
+    """(d), started: the production dry run on the 16×16 mesh of ``dev``'s
+    fakes in a subprocess (its fakes hold no card memory; it runs beside
+    (a)-(c) on another host core).  Returns what
+    :func:`dist_dryrun_collect` waits for."""
+    import tempfile
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_dry_")
+    path = os.path.join(tmp.name, "dry.jsonl")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+           "--production", "--device", torch_device_type(dev), "--out", path]
+    for arch, shape in cells:
+        cmd += ["--cell", f"{arch}:{shape}"]
+    proc = subprocess.Popen(cmd, env=dict(os.environ, PYTHONPATH=src),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, tmp, path, cells, time.perf_counter()
+
+
+def dist_dryrun_collect(started, timeout: float = 600) -> dict:
+    """(d), finished: each cell's record (all must be ``ok``)."""
+    proc, tmp, path, cells, t0 = started
+    with tmp:
+        try:
+            _, err = proc.communicate(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        seconds = time.perf_counter() - t0
+        recs = [json.loads(line) for line in open(path)] \
+            if os.path.exists(path) else []
+    check(len(recs) == len(cells), f"the dry run wrote {len(recs)} of "
+                                   f"{len(cells)} records: {err[-2000:]}")
+    out = {}
+    for rec in recs:
+        check(rec["ok"], f"dry run {rec['arch']} {rec['shape']} on "
+                         f"{rec['mesh']}: {rec.get('error')}")
+        out[f"{rec['arch']}:{rec['shape']}"] = {
+            k: rec[k] for k in ("mesh", "n_devices", "device", "fits",
+                                "collectives", "trace_s", "total_s")} | {
+            "peak_bytes": rec["memory"]["peak_bytes"],
+            "argument_bytes": rec["memory"]["argument_bytes"],
+            "flops": rec["cost"]["flops"]}
+    emit("dist_dryrun", seconds=seconds, cells=out)
+    return out
+
+
+def torch_device_type(dev) -> str:
+    import torch
+    return torch.device(dev).type
+
+
+def phase_dist(dev, cfg=None, prompt: int = DIST_PROMPT,
+               max_new: int = DIST_NEW, cells=DIST_CELLS) -> dict:
+    """Phase 25, ``dist`` (see the module's docstring)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import mesh as M
+    cfg = cfg or get_arch(DIST_ARCH).config
+    dry = dist_dryrun_start(dev, cells)
+    try:
+        out = {"gqa": phase_dist_gqa(dev)}
+        backend = "nccl" if torch_device_type(dev) == "cuda" else "gloo"
+        with M.file_process_group(backend):
+            mesh = M.make_local_mesh(device_type=torch_device_type(dev))
+            out["decode"] = dist_decode(dev, mesh, cfg, prompt=prompt,
+                                        max_new=max_new)
+            out["cross_pod"] = dist_cross_pod(dev, cfg)
+    finally:
+        out_dry = dist_dryrun_collect(dry)
+    out["dryrun"] = out_dry
+    return out
+
+
+# --------------------------------------------------------------------- #
 # phase 11: LM decode serving, the third slice's main path
 # --------------------------------------------------------------------- #
 LM_ARCH = "qwen2.5-14b"
 LM_SLOTS = 8
 LM_MAX_LEN = 1024
-# a RAG prompt: a few retrieved passages and a question; up to 512 tokens
-# before phase 12b came, cut to 256 to keep the whole run under 600 s (at
-# 512 phase 11 took 104 s of a 629 s run on an H100, PERF.md §5)
-LM_PROMPT_LENS = (64, 256)
+# a prompt of 16-64 tokens (a question and a short retrieved passage).  A
+# RAG prompt of a few passages took up to 512 tokens before phase 12b
+# came, 256 until phase dist came, cut to keep the whole run under 600 s
+# (at 512 phase 11 took 104 s of a 629 s run on an H100, PERF.md §4).
+# At 8 slots of 8 KV heads gqa_decode cuts the 1,024 positions into two
+# splits of 512, so no length here or before put data in the second one:
+# the served decode runs split 0 alone (kv_splits in the phase's row);
+# phase moe_serve_qwen3 and phase 12 hold data in several
+LM_PROMPT_LENS = (16, 64)
 LM_MAX_NEW = 32
 # The bf16 decode's logits against the float32 forward on the same weights
 # and tokens, measured against what bf16 rounding alone does there: the
@@ -2197,6 +2523,28 @@ def replay(model, fed, slots: int, max_len: int, dtype=None):
     cache = init_cache(model.cfg, slots, max_len, model.device, dtype)
     return torch.stack([decode_step(model, cache, fed[:, i], dtype)[0]
                         for i in range(fed.shape[1])], 1)
+
+
+def served_splits(dev, cfg, slots: int, max_len: int, steps: int,
+                  sms: int = None):
+    """The served cache's KV splits in ``gqa_decode`` (``splits`` runs of
+    ``chunk`` positions) and how many of them hold data at the last step
+    (``holding_data``): every slot steps together, so each then holds
+    ``steps`` positions.  The split rule counts the card's SMs (``sms``,
+    read from ``dev`` where not given); None on the host."""
+    import torch
+    from repro_torch.device import sm_count
+    from repro_torch.kernels.gqa_decode import kernel as gk
+    if sms is None:
+        if torch.device(dev).type != "cuda":
+            return None
+        sms = sm_count(torch.device(dev))
+    kind = gk.path(cfg.torch_dtype, cfg.head_dim)
+    blocks = slots * cfg.n_kv_heads * (gk.row_tiles(cfg.group_size)
+                                       if kind == gk.MMA else 1)
+    n, chunk = gk.splits(blocks, max_len, sms, kind)
+    return {"splits": n, "chunk": chunk,
+            "holding_data": min(n, -(-min(steps, max_len) // chunk))}
 
 
 def conditioned_check(dev, cfg, prompts, slots: int, max_len: int,
@@ -2346,8 +2694,10 @@ def phase_lm_serve(dev, cfg=None, slots: int = LM_SLOTS,
     row = dict(arch=cfg.name, dtype=cfg.dtype, layers=cfg.n_layers,
                params=cfg.param_count(), slots=slots, max_len=max_len,
                prompt_lens=[len(p) for p in prompts], max_new=max_new,
-               init_s=init_s, calls=runs, tokens_equal=True,
-               ref_forward_s=ref_s, logits_vs_f32=bf16,
+               init_s=init_s, calls=runs,
+               kv_splits=served_splits(dev, cfg, slots, max_len,
+                                       runs[0]["steps"]),
+               tokens_equal=True, ref_forward_s=ref_s, logits_vs_f32=bf16,
                forward_vs_f32=rounding, fp8_weights_vs_f32=fp8,
                mean_abs_tol=logit_tol, top1_min=top1_min,
                tolerance=f"decode mean |Δ| <= {LOGIT_RATIO} x the "
@@ -2852,10 +3202,15 @@ MOE3_ARCH = "qwen3-moe-235b-a22b"
 # 21.2 B parameters, 42.3 GB, which leaves room for the fp8 rounding in
 # place, the float32 replay's widened layer and the cache
 MOE3_LAYERS = 8
-MOE3_PROMPT_LENS = (64, 256)      # phase 11's RAG-sized prompts
+# Qwen3-MoE's prompts: the longest (245 tokens) and 16 new tokens take the
+# cache past gqa_decode's first split (256 positions at 8 slots of 4 KV
+# heads on an H100), so the served decode merges data from two splits;
+# checked (min_splits)
+MOE3_PROMPT_LENS = (64, 256)
 # Qwen2-MoE-A2.7B's prompts: 64-256 tokens until Qwen3-MoE's phase 12c
-# came, cut to 32-128 to keep the whole run under 600 s (PERF.md §4)
-MOE_PROMPT_LENS = (32, 128)
+# came, cut to 32-128 to keep the whole run under 600 s, and to 8-32 when
+# phase dist came (PERF.md §4)
+MOE_PROMPT_LENS = (8, 32)
 MOE_MAX_NEW = 16
 # The logit check of phase 11 compares the decode with a forward; an MoE
 # forward over the same tokens routes T = B·S tokens at once and so has
@@ -2937,7 +3292,7 @@ def phase_moe_serve(dev, bw: float, cfg=None, slots: int = LM_SLOTS,
                     max_len: int = LM_MAX_LEN, lens=MOE_PROMPT_LENS,
                     max_new: int = MOE_MAX_NEW,
                     cond_layers: int = COND_LAYERS,
-                    phase: str = "moe_serve") -> dict:
+                    phase: str = "moe_serve", min_splits: int = 1) -> dict:
     import torch
     from repro_torch.configs.lm_family import get_config
     from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
@@ -2990,6 +3345,10 @@ def phase_moe_serve(dev, bw: float, cfg=None, slots: int = LM_SLOTS,
     check(bool(torch.isfinite(dec).all()), "non-finite MoE decode logits")
     server.cache = None
     n_steps = fed.shape[1]
+    kv_splits = served_splits(dev, cfg, slots, max_len, n_steps)
+    check(kv_splits is None or kv_splits["holding_data"] >= min_splits,
+          f"{phase}: the served cache's data lies in fewer than "
+          f"{min_splits} of gqa_decode's splits: {kv_splits}")
 
     routes = [out[1] for out in routes]
     t0 = time.perf_counter()
@@ -3017,7 +3376,7 @@ def phase_moe_serve(dev, bw: float, cfg=None, slots: int = LM_SLOTS,
                shared=m.n_shared, capacity=capacity(slots, m), slots=slots,
                max_len=max_len, prompt_lens=[len(p) for p in prompts],
                max_new=max_new, init_s=init_s, calls=runs,
-               tokens_equal=True, gather_bytes=gather,
+               kv_splits=kv_splits, tokens_equal=True, gather_bytes=gather,
                gather_bound_ms=1e3 * gather["total"] / bw,
                ms_over_gather_bound=runs[1]["ms_per_step"] / (
                    1e3 * gather["total"] / bw),
@@ -4401,10 +4760,11 @@ def phase_bag_backward_deploy(dev, bw, flops, batch: int = None,
 # minibatch_lg: the reference's cell samples 1,024 seeds at fanout 15-10
 # from a 232,965-node graph (Reddit's node count, the reference's
 # gnn_family.py docstring).  Reddit's 114.6 M edges are cut to mean degree
-# 50 (11,648,250 edges) to keep the host's graph build and sampler index
-# short; fanout 15 needs a degree of at least 15.
+# 25 (5,824,125 edges; 50 until the mesh slice's phase dist) to keep the
+# host's graph build and sampler index short; fanout 15 needs a degree of
+# at least 15.
 GNN_PARENT_NODES = 232_965
-GNN_PARENT_EDGES = 11_648_250
+GNN_PARENT_EDGES = 5_824_125     # mean degree 25 (50 until phase dist)
 GNN_SEEDS = 1_024
 GNN_FANOUTS = (15, 10)
 GNN_MOLECULES = (128, 30, 64)     # molecule: graphs, nodes and edges each
@@ -4879,7 +5239,7 @@ def main() -> int:
     moe = timed("moe_serve", phase_moe_serve, dev, bw)
     moe3 = timed("moe_serve_qwen3", phase_moe_serve, dev, bw,
                  cfg=moe3_config(), lens=MOE3_PROMPT_LENS,
-                 phase="moe_serve_qwen3")
+                 phase="moe_serve_qwen3", min_splits=2)
     bag_err = timed("bag_small", phase_bag_small, dev)
     recsys = timed("recsys_serve", phase_recsys_serve, dev)
     bags = timed("bag_deploy", phase_bag_deploy, dev, bw, flops)
@@ -4893,6 +5253,7 @@ def main() -> int:
     timed("gnn_serve", phase_gnn_serve, dev)
     dry = timed("dryrun", phase_dryrun, dev)
     timed("dispatch", dispatch_cost, dev)
+    dist = timed("dist", phase_dist, dev)
     emit("done", seconds=time.perf_counter() - t_start, phase_s=phase_s)
 
     r = rows[10]
@@ -4945,15 +5306,21 @@ def main() -> int:
                   "at G <= 8, two products a V fragment at 9 <= G <= 16)",
         "launches": lm["calls"][0]["launches"]
         + moe["calls"][0]["launches"] + moe3["calls"][0]["launches"]
-        + sum(r["launches"]["gqa_decode"] for r in dry.values()),
+        + sum(r["launches"]["gqa_decode"] for r in dry.values())
+        + dist["gqa"]["launches"] + dist["decode"]["launches"],
         "launches_by_path": {"lm_serve": lm["calls"][0]["launches"],
                              "moe_serve": moe["calls"][0]["launches"],
                              "moe_serve_qwen3": moe3["calls"][0]["launches"],
                              "dryrun": sum(r["launches"]["gqa_decode"]
-                                           for r in dry.values())},
-        "max_abs_err": max(decode_err, *(deploy[c]["max_abs_err"]
-                                         for c in ("32k", "500k",
-                                                   "32k_g1", "32k_g16"))),
+                                           for r in dry.values()),
+                             "dist_wide_g_d": dist["gqa"]["launches"],
+                             "dist_dtensor_decode":
+                                 dist["decode"]["launches"]},
+        "max_abs_err": max(decode_err, dist["gqa"]["max_abs_err"],
+                           *(deploy[c]["max_abs_err"]
+                             for c in ("32k", "500k", "32k_g1",
+                                       "32k_g16"))),
+        "wide_g_d": [c for c in dist["gqa"]["cases"] if "kernel_ms" in c],
         "ms": k32["kernel_ms"], "kernel_ms": k32["kernel_ms"],
         "plain_ms": k32["plain_ms"], "library_ms": k32["library_ms"],
         "bound_ms": k32["bound_ms"], "bound_by": k32["bound_by"],

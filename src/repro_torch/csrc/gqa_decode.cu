@@ -32,7 +32,8 @@
 // picks n_split from the shapes alone (never from length, so a CUDA graph
 // can capture the launch), and picks the partial kernel by dtype and D:
 //
-// mma path, bfloat16 with D <= 128 (every LM config of the repository).
+// mma path, bfloat16 with D <= 128 a multiple of 8 (every LM config of
+//   the repository).
 //   A block of TILE/16 warps walks its split in tiles of TILE positions.
 //   K and V tiles go through a ring of STAGES stages in shared memory:
 //   before the block computes tile t, every thread issues `cp.async` of
@@ -60,11 +61,14 @@
 //     puts them to use: its A holds P_hi in rows 0-7 and P_lo in rows
 //     8-15, one mma a V fragment, and the float32 accumulator's rows g and
 //     g + 8 are added at the end.
-//   - ROWS = 16, 9 <= G <= 16: q fills rows 8..G-1 too, so each thread
-//     keeps the online softmax of two rows (grp and grp + 8), and P.V
-//     takes two mmas a V fragment, P_hi of all 16 rows and then P_lo,
-//     into the same float32 accumulator.  (G above 16 would need a second
-//     m16 tile; the wrapper refuses it.)
+//   - ROWS = 16, G >= 9: q fills rows 8..15 too, so each thread keeps the
+//     online softmax of two rows (grp and grp + 8), and P.V takes two
+//     mmas a V fragment, P_hi of all 16 rows and then P_lo, into the same
+//     float32 accumulator.  Above G = 16 the grid's z axis walks row
+//     tiles of 16 (one launch; each tile's block reads its split's K and
+//     V, so K and V are read ceil(G / 16) times, mostly from L2 where the
+//     tiles of one split run together); the wrapper counts the row tiles
+//     in the blocks a wave holds when it cuts the splits.
 //   Online softmax per warp in float32 (l summed from the float32 p, the
 //   rescale skipped when no row's max grew, where it would multiply by
 //   1); the warps merge in shared memory.
@@ -72,17 +76,23 @@
 //   kernel is memory-bound with mma.sync's products off the FMA pipe.
 //
 // fma path, float32 (tensor cores would mean TF32, outside the float32
-//   tolerance) and bfloat16 with D > 128.  A block loads the G query rows
-//   of its (b, h) once into registers and walks its split's positions.
-//   TPR = pow2 >= D/8 threads share one K/V row, 8 elements each (one
-//   16-byte load per row for bfloat16), so a block holds 128/TPR row
-//   groups, each with its own online softmax per query row in float32
-//   over U rows per step (their loads issued together).  The row groups
-//   merge in shared memory.  An instance takes at most 8 query rows: its
-//   static shared memory is about 5 KB a row (48 KB is the static limit)
-//   and q and the accumulator take 16 registers a row a thread.  So G > 8
-//   goes as ceil(G / 8) launches of at most 8 rows each, one after
-//   another on the stream, each reading its (b, h)'s K and V once.  This
+//   tolerance), bfloat16 with D > 128, and any D that is not a multiple
+//   of 8 (rows then not 16-byte aligned: each thread loads its 8
+//   elements one by one, masked at D; nothing is padded or copied).  A
+//   thread holds NV = 1, 2 or 4 vectors of 8 elements of a row, so D goes
+//   to 256, 512 or 1024 (kFmaMaxD; the wrapper refuses wider D on the
+//   card).  A block loads the G query rows of its (b, h) once into
+//   registers and walks its split's positions.  TPR = pow2 >= D/(8 NV)
+//   threads share one K/V row, 8 NV elements each (a 16-byte load per
+//   vector for bfloat16), so a block holds 128/TPR row groups, each with
+//   its own online softmax per query row in float32 over U rows per step
+//   (their loads issued together; U = 2 at NV = 1, else 1).  The row
+//   groups merge in shared memory.  An instance takes at most 8 query
+//   rows at NV = 1: its static shared memory is about 5 KB a row (48 KB is
+//   the static limit) and q and the accumulator take 16 NV registers a
+//   row a thread.  So the rows go as launches of at most 8, 4 or 1 rows
+//   (NV = 1, 2, 4), one after another on the stream, each reading its
+//   (b, h)'s K and V once.  This
 //   path serves float32 and D > 128, not the bf16 serving path, so the
 //   second read of K and V costs nothing that is served.
 //
@@ -113,7 +123,7 @@ namespace {
 constexpr int kRowsInFlight = 2;
 constexpr int kThreads = 128;
 constexpr int kVec = 8;            // elements of D per thread
-constexpr int kMaxD = 32 * kVec;   // the combine's block: one thread a d
+constexpr int kMaxD = 32 * kVec;   // the combine's widest block; fma D at NV 1
 constexpr float kNegInf = -1e30f;
 constexpr float kMinusInf = -__builtin_huge_valf();
 constexpr int kTile = GQA_TILE;
@@ -121,8 +131,8 @@ constexpr int kStages = GQA_STAGES;
 constexpr int kMmaWarps = kTile / 16;
 constexpr int kMmaThreads = 32 * kMmaWarps;
 constexpr int kMmaMaxD = 128;
-constexpr int kMaxG = 16;          // query rows a KV head: one m16 tile
-constexpr int kFmaMaxG = 8;        // query rows of one fma instance
+constexpr int kFmaMaxG = 8;        // query rows of one fma instance, D <= 256
+constexpr int kFmaMaxD = 4 * kMaxD;  // the fma kernel's widest D
 constexpr int kMaxDevices = 64;
 static_assert(kTile % 16 == 0 && kTile >= 32 && kTile <= 512,
               "GQA_TILE: a multiple of 16 positions, 32 to 512");
@@ -138,7 +148,9 @@ constexpr int mma_smem_bytes(int dp) {
 // ------------------------------------------------------------------ //
 // fma path
 // ------------------------------------------------------------------ //
-// Eight elements of a row in registers, loaded with 16-byte vector loads.
+// Eight elements of a row in registers, loaded with 16-byte vector loads
+// (`load`), or element by element where D is not a multiple of 8 and
+// rows are not 16-byte aligned (`load_tail`, n of the 8 in range).
 template <typename T>
 struct Vec8;
 
@@ -148,6 +160,13 @@ struct Vec8<float> {
   __device__ __forceinline__ void load(const float* p) {
     a = __ldg(reinterpret_cast<const float4*>(p));
     b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void load_tail(const float* p, int n) {
+    float f[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) f[e] = e < n ? __ldg(p + e) : 0.f;
+    a = make_float4(f[0], f[1], f[2], f[3]);
+    b = make_float4(f[4], f[5], f[6], f[7]);
   }
   __device__ __forceinline__ void zero() {
     a = b = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -164,6 +183,14 @@ struct Vec8<__nv_bfloat16> {
   __device__ __forceinline__ void load(const __nv_bfloat16* p) {
     a = __ldg(reinterpret_cast<const uint4*>(p));
   }
+  __device__ __forceinline__ void load_tail(const __nv_bfloat16* p, int n) {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+    unsigned w[kVec];
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) w[e] = e < n ? __ldg(h + e) : 0u;
+    a = make_uint4(w[0] | w[1] << 16, w[2] | w[3] << 16, w[4] | w[5] << 16,
+                   w[6] | w[7] << 16);
+  }
   __device__ __forceinline__ void zero() { a = make_uint4(0u, 0u, 0u, 0u); }
   // bfloat16 is the high half of a float32: widening is a shift (exact).
   __device__ __forceinline__ void widen(float (&f)[kVec]) const {
@@ -176,13 +203,29 @@ struct Vec8<__nv_bfloat16> {
   }
 };
 
+// The 8 elements of a row at p, of which n (<= 8, maybe fewer or none)
+// lie in the row; whole vectors where rows are 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void load_row8(Vec8<T>& x, const T* p, int n,
+                                          bool vec) {
+  if (n <= 0) {
+    x.zero();
+  } else if (vec && n >= kVec) {
+    x.load(p);
+  } else {
+    x.load_tail(p, n);
+  }
+}
+
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// Query rows g0 .. g0 + G - 1 of the g_all rows a KV head has.
-template <typename T, int G>
+// Query rows g0 .. g0 + G - 1 of the g_all rows a KV head has.  A thread
+// holds NV vectors of 8 elements of a row: vector c covers elements
+// 8 (c tpr + lane) .. + 7, so D <= 256 NV (kFmaMaxD at NV = 4).
+template <typename T, int G, int NV>
 __global__ void __launch_bounds__(kThreads, 1)
 gqa_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ length,
@@ -190,10 +233,10 @@ gqa_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    float* __restrict__ acc_part, int s, int hkv, int d,
                    int tpr, int n_split, int chunk, float scale, int g_all,
                    int g0) {
-  constexpr int U = kRowsInFlight;
+  constexpr int U = NV == 1 ? kRowsInFlight : 1;
   __shared__ float sm_m[kThreads][G];
   __shared__ float sm_l[kThreads][G];
-  __shared__ float sm_acc[kThreads * kVec * G];
+  __shared__ float sm_acc[kThreads * kVec * NV * G];
 
   const int bh = blockIdx.x, split = blockIdx.y;
   const int b = bh / hkv, h = bh - b * hkv;
@@ -213,62 +256,71 @@ gqa_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int row = tid / tpr, lane = tid - row * tpr;
   const int rows = kThreads / tpr;
-  const int e0 = lane * kVec;
-  const bool active = e0 < d;  // D/8 need not be a power of two
+  const bool vec = d % kVec == 0;  // rows 16-byte aligned
+  int e0[NV];                      // D/8 need not be a power of two
+#pragma unroll
+  for (int c = 0; c < NV; ++c) e0[c] = (c * tpr + lane) * kVec;
 
-  float qf[G][kVec];
+  float qf[G][NV][kVec];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    Vec8<T> x;
-    if (active) {
-      x.load(q + ((long long)bh * g_all + g0 + g) * d + e0);
-    } else {
-      x.zero();
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      Vec8<T> x;
+      load_row8(x, q + ((long long)bh * g_all + g0 + g) * d + e0[c],
+                d - e0[c], vec);
+      x.widen(qf[g][c]);
     }
-    x.widen(qf[g]);
   }
-  float m[G], l[G], acc[G][kVec];
+  float m[G], l[G], acc[G][NV][kVec];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < kVec; ++e) acc[g][e] = 0.f;
+    for (int c = 0; c < NV; ++c) {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) acc[g][c][e] = 0.f;
+    }
   }
 
   const long long pos_stride = (long long)hkv * d;
-  const long long base_off = ((long long)b * s * hkv + h) * d + e0;
+  const long long base_off = ((long long)b * s * hkv + h) * d;
   const T* kb = k + base_off;
   const T* vb = v + base_off;
 
   // The trip count is the same for every thread of the block, so the
   // shuffles below always run with the whole warp.
   for (int base = lo; base < hi; base += rows * U) {
-    Vec8<T> kr[U], vr[U];
+    Vec8<T> kr[U][NV], vr[U][NV];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int p = base + row + u * rows;
       ok[u] = p < hi;
-      if (ok[u] && active) {
-        kr[u].load(kb + p * pos_stride);
-        vr[u].load(vb + p * pos_stride);
-      } else {
-        kr[u].zero();
-        vr[u].zero();
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        const int n = ok[u] ? d - e0[c] : 0;
+        load_row8(kr[u][c], kb + p * pos_stride + e0[c], n, vec);
+        load_row8(vr[u][c], vb + p * pos_stride + e0[c], n, vec);
       }
     }
     float sc[U][G];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[kVec];
-      kr[u].widen(kf);
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float dot = 0.f;
+      for (int g = 0; g < G; ++g) sc[u][g] = 0.f;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) dot = fmaf(qf[g][e], kf[e], dot);
-        sc[u][g] = dot;
+      for (int c = 0; c < NV; ++c) {
+        float kf[kVec];
+        kr[u][c].widen(kf);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          float dot = sc[u][g];
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) dot = fmaf(qf[g][c][e], kf[e], dot);
+          sc[u][g] = dot;
+        }
       }
     }
     for (int off = tpr >> 1; off > 0; off >>= 1) {
@@ -280,9 +332,6 @@ gqa_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
-    float vf[U][kVec];
-#pragma unroll
-    for (int u = 0; u < U; ++u) vr[u].widen(vf[u]);
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float mx = m[g];
@@ -294,13 +343,23 @@ gqa_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float alpha = __expf(m[g] - mx);
       l[g] *= alpha;
 #pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[g][e] *= alpha;
+      for (int c = 0; c < NV; ++c) {
+#pragma unroll
+        for (int e = 0; e < kVec; ++e) acc[g][c][e] *= alpha;
+      }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const float p = ok[u] ? __expf(sc[u][g] - mx) : 0.f;
         l[g] += p;
 #pragma unroll
-        for (int e = 0; e < kVec; ++e) acc[g][e] = fmaf(p, vf[u][e], acc[g][e]);
+        for (int c = 0; c < NV; ++c) {
+          float vf[kVec];
+          vr[u][c].widen(vf);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) {
+            acc[g][c][e] = fmaf(p, vf[e], acc[g][c][e]);
+          }
+        }
       }
       m[g] = mx;
     }
@@ -318,10 +377,11 @@ gqa_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 1; r < rows; ++r) mstar = fmaxf(mstar, sm_m[r][g]);
     const float w = __expf(m[g] - mstar);
     if (lane == 0) sm_l[row][g] = l[g] * w;
-    if (active) {
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
 #pragma unroll
       for (int e = 0; e < kVec; ++e) {
-        sm_acc[(row * G + g) * d + e0 + e] = acc[g][e] * w;
+        if (e0[c] + e < d) sm_acc[(row * G + g) * d + e0[c] + e] = acc[g][c][e] * w;
       }
     }
   }
@@ -437,7 +497,10 @@ __device__ __forceinline__ float hi_f32(uint32_t r) {
 // tig..+1), c2, c3 (row grp + 8).
 //
 // ROWS: the rows of the m16 tile that hold query rows, 8 (G <= 8) or 16
-// (9 <= G <= 16); QR = ROWS / 8 rows a thread: grp and, at 16, grp + 8.
+// (G >= 9); QR = ROWS / 8 rows a thread: grp and, at 16, grp + 8.  Above
+// 16 query rows the grid's z axis walks tiles of 16 rows: block z takes
+// rows g0 = 16 z .. g0 + g - 1 (g <= 16) of the g_all a KV head has, and
+// reads its split's K and V itself.
 template <int NK, int ROWS>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 gqa_mma_partial_kernel(const __nv_bfloat16* __restrict__ q,
@@ -445,8 +508,9 @@ gqa_mma_partial_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ v,
                        const int* __restrict__ length,
                        float* __restrict__ m_part, float* __restrict__ l_part,
-                       float* __restrict__ acc_part, int s, int hkv, int g,
-                       int d, int n_split, int chunk, float scale) {
+                       float* __restrict__ acc_part, int s, int hkv,
+                       int g_all, int d, int n_split, int chunk,
+                       float scale) {
   static_assert(ROWS == 8 || ROWS == 16, "ROWS: 8 or 16 query rows");
   constexpr int QR = ROWS / 8;
   constexpr int DP = 16 * NK;      // D padded to the mma's k16
@@ -464,14 +528,17 @@ gqa_mma_partial_kernel(const __nv_bfloat16* __restrict__ q,
   const int bh = blockIdx.x, split = blockIdx.y;
   const int b = bh / hkv, h = bh - b * hkv;
   const long long part = (long long)bh * n_split + split;
+  const int g0 = blockIdx.z * ROWS;
+  const int g = min(ROWS, g_all - g0);
+  const long long prow = part * g_all + g0;  // this block's first row
   const int len = min(max(length[b], 0), s);
   const int lo = split * chunk;
   const int hi = min(lo + chunk, len);
   const int tid = threadIdx.x;
   if (lo >= hi) {
     if (tid < g) {
-      m_part[part * g + tid] = kNegInf;
-      l_part[part * g + tid] = 0.f;
+      m_part[prow + tid] = kNegInf;
+      l_part[prow + tid] = 0.f;
     }
     return;
   }
@@ -525,7 +592,7 @@ gqa_mma_partial_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < QR; ++r) {
       const int row = grp + 8 * r;
-      const __nv_bfloat16* qrow = q + ((long long)bh * g + row) * d;
+      const __nv_bfloat16* qrow = q + ((long long)bh * g_all + g0 + row) * d;
 #pragma unroll
       for (int kk = 0; kk < NK; ++kk) {
 #pragma unroll
@@ -712,7 +779,7 @@ gqa_mma_partial_kernel(const __nv_bfloat16* __restrict__ q,
     float sum = 0.f;
 #pragma unroll
     for (int w = 0; w < kMmaWarps; ++w) sum += so[(w * ROWS + gi) * DP + e];
-    acc_part[part * g * d + i] = sum;
+    acc_part[prow * d + i] = sum;
   }
   if (tid < g) {
     float ms = sm_m[0][tid], lsum = 0.f;
@@ -722,21 +789,21 @@ gqa_mma_partial_kernel(const __nv_bfloat16* __restrict__ q,
     for (int w = 0; w < kMmaWarps; ++w) {
       lsum += sm_l[w][tid] * __expf(sm_m[w][tid] - ms);
     }
-    m_part[part * g + tid] = ms;
-    l_part[part * g + tid] = lsum;
+    m_part[prow + tid] = ms;
+    l_part[prow + tid] = lsum;
   }
 }
 
-// One block per query row (b, h, g), one thread per element of D.
+// One block per query row (b, h, g), one thread per element of D (and
+// per element blockDim.x further on, above 256).
 template <typename T>
 __global__ void __launch_bounds__(kMaxD)
 gqa_combine_kernel(const float* __restrict__ m_part,
                    const float* __restrict__ l_part,
                    const float* __restrict__ acc_part, T* __restrict__ out,
                    int n_split, int g, int d) {
-  const int row = blockIdx.x, t = threadIdx.x;
+  const int row = blockIdx.x;
   const int bh = row / g, gi = row - bh * g;
-  if (t >= d) return;
   const long long part0 = (long long)bh * n_split;
   // Loads are not conditional, so up to 16 splits' are in flight; a split
   // past length wrote no acc, and its entry is never used.
@@ -747,55 +814,69 @@ gqa_combine_kernel(const float* __restrict__ m_part,
     const float lj = l_part[p], mj = m_part[p];
     if (lj > 0.f) mstar = fmaxf(mstar, mj);
   }
-  float lsum = 0.f, o = 0.f;
+  for (int t = threadIdx.x; t < d; t += blockDim.x) {
+    float lsum = 0.f, o = 0.f;
 #pragma unroll 16
-  for (int j = 0; j < n_split; ++j) {
-    const long long p = (part0 + j) * g + gi;
-    const float lj = l_part[p], mj = m_part[p], a = acc_part[p * d + t];
-    if (lj > 0.f) {
-      const float w = __expf(mj - mstar);
-      lsum = fmaf(lj, w, lsum);
-      o = fmaf(a, w, o);
+    for (int j = 0; j < n_split; ++j) {
+      const long long p = (part0 + j) * g + gi;
+      const float lj = l_part[p], mj = m_part[p], a = acc_part[p * d + t];
+      if (lj > 0.f) {
+        const float w = __expf(mj - mstar);
+        lsum = fmaf(lj, w, lsum);
+        o = fmaf(a, w, o);
+      }
     }
+    store(out + (long long)row * d + t, o / fmaxf(lsum, 1e-30f));
   }
-  store(out + (long long)row * d + t, o / fmaxf(lsum, 1e-30f));
 }
 
-template <typename T, int G>
+template <typename T, int G, int NV>
 cudaError_t run_fma(const void* q, const void* k, const void* v,
                     const void* length, float* m_part, float* l_part,
                     float* acc_part, int b, int s, int hkv, int d,
                     int n_split, int chunk, float scale, int g_all, int g0,
                     cudaStream_t stream) {
   int tpr = 1;
-  while (tpr * kVec < d) tpr <<= 1;
-  gqa_partial_kernel<T, G><<<dim3(b * hkv, n_split), kThreads, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)length, m_part,
-      l_part, acc_part, s, hkv, d, tpr, n_split, chunk, scale, g_all, g0);
+  while (tpr * kVec * NV < d) tpr <<= 1;
+  gqa_partial_kernel<T, G, NV>
+      <<<dim3(b * hkv, n_split), kThreads, 0, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const int*)length, m_part,
+          l_part, acc_part, s, hkv, d, tpr, n_split, chunk, scale, g_all,
+          g0);
   return cudaGetLastError();
 }
 
-// Rows g0 .. g0 + g - 1 (g <= kFmaMaxG) of the g_all a KV head has.
+// Vectors of 8 a thread holds of a row, by D: 1 up to 256, 2 up to 512,
+// 4 up to kFmaMaxD.
+int fma_vectors(int d) { return d <= kMaxD ? 1 : d <= 2 * kMaxD ? 2 : 4; }
+
+// Query rows an fma instance takes at NV vectors a thread: its static
+// shared memory (sm_acc, kThreads * 8 * NV * G floats) and its registers
+// (q and the accumulator, 16 NV G a thread) stay those of 8 rows at NV = 1.
+int fma_rows(int nv) { return nv == 1 ? kFmaMaxG : nv == 2 ? 4 : 1; }
+
+// Rows g0 .. g0 + g - 1 (g <= fma_rows) of the g_all a KV head has.
 template <typename T>
 cudaError_t dispatch_fma(int g, const void* q, const void* k, const void* v,
                          const void* length, float* m_part, float* l_part,
                          float* acc_part, int b, int s, int hkv, int d,
                          int n_split, int chunk, float scale, int g_all,
                          int g0, cudaStream_t stream) {
-#define GQA_CASE(G_)                                                       \
-  case G_:                                                                 \
-    return run_fma<T, G_>(q, k, v, length, m_part, l_part, acc_part, b, s, \
-                          hkv, d, n_split, chunk, scale, g_all, g0, stream);
-  switch (g) {
-    GQA_CASE(1) GQA_CASE(2) GQA_CASE(3) GQA_CASE(4)
-    GQA_CASE(5) GQA_CASE(6) GQA_CASE(7) GQA_CASE(8)
-    default:
-      return cudaErrorInvalidValue;
-  }
+#define GQA_CASE(G_, NV_)                                                   \
+  if (g == G_ && nv == NV_)                                                 \
+    return run_fma<T, G_, NV_>(q, k, v, length, m_part, l_part, acc_part, b, \
+                               s, hkv, d, n_split, chunk, scale, g_all, g0, \
+                               stream);
+  const int nv = fma_vectors(d);
+  GQA_CASE(1, 1) GQA_CASE(2, 1) GQA_CASE(3, 1) GQA_CASE(4, 1)
+  GQA_CASE(5, 1) GQA_CASE(6, 1) GQA_CASE(7, 1) GQA_CASE(8, 1)
+  GQA_CASE(1, 2) GQA_CASE(2, 2) GQA_CASE(3, 2) GQA_CASE(4, 2)
+  GQA_CASE(1, 4)
+  return cudaErrorInvalidValue;
 #undef GQA_CASE
 }
 
-// Every query row: groups of kFmaMaxG rows, one launch each (see the
+// Every query row: groups of fma_rows rows, one launch each (see the
 // design note at the top).
 template <typename T>
 cudaError_t run_fma_groups(int g, const void* q, const void* k,
@@ -803,10 +884,11 @@ cudaError_t run_fma_groups(int g, const void* q, const void* k,
                            float* l_part, float* acc_part, int b, int s,
                            int hkv, int d, int n_split, int chunk,
                            float scale, cudaStream_t stream) {
-  for (int g0 = 0; g0 < g; g0 += kFmaMaxG) {
+  const int rows = fma_rows(fma_vectors(d));
+  for (int g0 = 0; g0 < g; g0 += rows) {
     const cudaError_t err = dispatch_fma<T>(
-        g - g0 < kFmaMaxG ? g - g0 : kFmaMaxG, q, k, v, length, m_part, l_part, acc_part, b,
-        s, hkv, d, n_split, chunk, scale, g, g0, stream);
+        g - g0 < rows ? g - g0 : rows, q, k, v, length, m_part, l_part,
+        acc_part, b, s, hkv, d, n_split, chunk, scale, g, g0, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -832,8 +914,9 @@ cudaError_t run_mma(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
+  const int row_tiles = (g + ROWS - 1) / ROWS;
   gqa_mma_partial_kernel<NK, ROWS>
-      <<<dim3(b * hkv, n_split), kMmaThreads, smem, stream>>>(
+      <<<dim3(b * hkv, n_split, row_tiles), kMmaThreads, smem, stream>>>(
           (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
           (const __nv_bfloat16*)v, (const int*)length, m_part, l_part,
           acc_part, s, hkv, g, d, n_split, chunk, scale);
@@ -867,10 +950,11 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v,
 // The mma kernel's positions per tile, as built.
 extern "C" int gqa_decode_tile() { return kTile; }
 
-// Launches the partial kernel of `path` (1 = mma: bfloat16, D <= 128,
-// chunk a multiple of the tile; 0 = fma, ceil(G / 8) launches) and the
-// combine on `stream`, for 1 <= G <= 16 query rows a KV head, and
-// returns cudaGetLastError() (0 = launched).  Does not synchronise and
+// Launches the partial kernel of `path` (1 = mma: bfloat16, D <= 128 a
+// multiple of 8, chunk a multiple of the tile, ceil(G / 16) row tiles on
+// the grid above G = 16; 0 = fma, D <= kFmaMaxD, launches of fma_rows
+// rows) and the combine on `stream`, for any G >= 1 query rows a KV head,
+// and returns cudaGetLastError() (0 = launched).  Does not synchronise and
 // allocates nothing: `part` is the caller's float32 scratch of
 // B*Hkv*n_split*G*(D + 2) entries.
 extern "C" int gqa_decode_launch(const void* q, const void* k, const void* v,
@@ -878,9 +962,10 @@ extern "C" int gqa_decode_launch(const void* q, const void* k, const void* v,
                                  int b, int s, int hkv, int g, int d,
                                  int n_split, int chunk, float scale,
                                  int bf16, int mma, void* stream) {
-  if (b <= 0 || s <= 0 || hkv <= 0 || d <= 0 || d % kVec != 0 ||
-      d > kMaxD || g < 1 || g > kMaxG || n_split <= 0 || chunk <= 0 ||
-      (mma && (!bf16 || d > kMmaMaxD || chunk % kTile != 0))) {
+  if (b <= 0 || s <= 0 || hkv <= 0 || d <= 0 || d > kFmaMaxD || g < 1 ||
+      n_split <= 0 || chunk <= 0 ||
+      (mma && (!bf16 || d % kVec != 0 || d > kMmaMaxD ||
+               chunk % kTile != 0))) {
     return (int)cudaErrorInvalidValue;
   }
   const auto st = (cudaStream_t)stream;
@@ -902,13 +987,12 @@ extern "C" int gqa_decode_launch(const void* q, const void* k, const void* v,
                                 scale, st);
   }
   if (err != cudaSuccess) return (int)err;
+  const int threads = d < kMaxD ? (d + 31) / 32 * 32 : kMaxD;
   if (bf16) {
-    gqa_combine_kernel<__nv_bfloat16><<<b * hkv * g, (d + 31) / 32 * 32, 0,
-                                        st>>>(m_part, l_part, acc_part,
-                                              (__nv_bfloat16*)out, n_split,
-                                              g, d);
+    gqa_combine_kernel<__nv_bfloat16><<<b * hkv * g, threads, 0, st>>>(
+        m_part, l_part, acc_part, (__nv_bfloat16*)out, n_split, g, d);
   } else {
-    gqa_combine_kernel<float><<<b * hkv * g, (d + 31) / 32 * 32, 0, st>>>(
+    gqa_combine_kernel<float><<<b * hkv * g, threads, 0, st>>>(
         m_part, l_part, acc_part, (float*)out, n_split, g, d);
   }
   return (int)cudaGetLastError();

@@ -13,13 +13,19 @@ function's products, 4·B·Hkv·G·S·D over the cache's full S (``length`` is
 data, so the positions it masks count too).
 
 The kernel has two partial passes, chosen by :func:`path` from the dtype
-and D alone, at every G from 1 to 16: ``MMA`` (bfloat16, D ≤ 128: K/V
-tiles through a shared-memory ring fed by ``cp.async`` copies, both
-products on tensor cores; G ≤ 8 and 9 ≤ G ≤ 16 are two instances of one
-kernel, by the rows of its m16 tile that hold query rows) and ``FMA``
-(float32, and bfloat16 with D > 128: float32 FMAs; G > 8 as groups of 8
-rows).  A build or launch that fails raises; no path falls back to
-another.
+and D alone, at every G ≥ 1: ``MMA`` (bfloat16, D ≤ 128 a multiple of 8:
+K/V tiles through a shared-memory ring fed by ``cp.async`` copies, both
+products on tensor cores; G ≤ 8 and G ≥ 9 are two instances of one
+kernel, by the rows of its m16 tile that hold query rows, and above
+G = 16 a grid axis walks tiles of 16 rows, :func:`row_tiles`) and ``FMA``
+(float32, bfloat16 with D > 128, and any D off a multiple of 8, up to
+``FMA_MAX_D``: float32 FMAs, launches of 8, 4 or 1 query rows by D,
+``fma_rows`` in the source).  A D
+off a multiple of 8 is not padded: the fma kernel loads such rows element
+by element (padding would copy K and V, 2·B·S·Hkv·D_pad elements read and
+written again each call).  On the CPU the plain version takes any G ≥ 1
+and D ≥ 1, as the reference does.  A build or launch that fails raises;
+no path falls back to another.
 """
 
 import ctypes
@@ -42,8 +48,9 @@ BLOCKS_PER_SM = 1      # mma blocks the split count aims at, per SM
                        # (swept by launch.decode_sweep)
 FMA_BLOCKS_PER_SM = 8  # the same for the fma kernel
 MIN_SPLIT = 256        # fewest positions a split walks
-MAX_G = 16             # query rows a KV head: one m16 tile of the mma kernel
-MAX_D = 256
+MMA_ROWS = 16          # query rows of one m16 tile of the mma kernel
+FMA_MAX_D = 1024       # the fma kernel's widest D: 4 vectors of 8 a thread
+                       # of 32
 SMEM_LIMIT = 232_448   # shared memory a block may use on Hopper (227 KB)
 DTYPES = (torch.float32, torch.bfloat16)
 launches = 0
@@ -64,10 +71,17 @@ def _launcher():
 
 def path(dtype: torch.dtype, d: int) -> str:
     """The partial pass for q's dtype and head width D: tensor cores for
-    bfloat16 up to D = 128, float32 FMAs otherwise (TF32 would miss the
-    float32 tolerance; at D = 256 the mma accumulator alone would take 128
-    registers)."""
-    return MMA if dtype == torch.bfloat16 and d <= MMA_MAX_D else FMA
+    bfloat16 up to D = 128 in multiples of 8 (the ring's 16-byte copies),
+    float32 FMAs otherwise (TF32 would miss the float32 tolerance; at
+    D = 256 the mma accumulator alone would take 128 registers)."""
+    return (MMA if dtype == torch.bfloat16 and d <= MMA_MAX_D and d % 8 == 0
+            else FMA)
+
+
+def row_tiles(g: int) -> int:
+    """Blocks of the mma kernel a (b, h, split) takes: one up to G = 16,
+    else one a tile of 16 query rows (the grid's z axis)."""
+    return -(-g // MMA_ROWS)
 
 
 def mma_rows(g: int) -> int:
@@ -128,10 +142,8 @@ def _check(q, k, v, length):
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if length.dtype != torch.int32:
         raise TypeError(f"length must be int32, got {length.dtype}")
-    if d % 8 or not 8 <= d <= MAX_D:
-        raise ValueError(f"D must be a multiple of 8 up to {MAX_D}, got {d}")
-    if not 1 <= g <= MAX_G:
-        raise ValueError(f"G must be 1 to {MAX_G}, got {g}")
+    if d < 1 or g < 1:
+        raise ValueError(f"D and G must be at least 1, got D = {d}, G = {g}")
     if s == 0:
         raise ValueError("the cache has no positions (S = 0)")
     for name, x in (("q", q), ("k", k), ("v", v), ("length", length)):
@@ -148,7 +160,7 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q [B, Hkv, G, D]; k, v [B, S, Hkv, D]; length [B] int32 →
     [B, Hkv, G, D] in q's dtype.  q, k and v are float32 or bfloat16 (one
-    type), contiguous; D is a multiple of 8 up to 256; G is 1 to 16.
+    type), contiguous; any G ≥ 1 and D ≥ 1 (on the card D ≤ 1024).
     Positions at or past ``length[b]`` do not count, a ``length`` above S
     means all S positions, and ``length == 0`` gives zeros (the Pallas
     kernel's semantics, see :mod:`.ref`).
@@ -158,8 +170,11 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return gqa_decode_ref(q, k, v, length)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    d = q.shape[-1]
+    if d > FMA_MAX_D:
+        raise ValueError(f"the kernel takes D up to {FMA_MAX_D}, got {d}")
     for name, x in (("q", q), ("k", k), ("v", v)):
-        if x.data_ptr() % 16:
+        if d % 8 == 0 and x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     return _launch(q, k, v, length, path(q.dtype, q.shape[-1]))
 
@@ -189,7 +204,8 @@ def _launch(q, k, v, length, kind: str) -> torch.Tensor:
         return out
     sms = sm_count(q.device)
     launch, tile = _launcher()
-    n_split, chunk = splits(b * hkv, s, sms, kind, tile)
+    blocks = b * hkv * (row_tiles(g) if kind == MMA else 1)
+    n_split, chunk = splits(blocks, s, sms, kind, tile)
     part = torch.empty(b * hkv * n_split * g * (d + 2), dtype=torch.float32,
                        device=q.device)
     scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))   # as ref.py

@@ -1,5 +1,5 @@
-"""One-card dry run: the real step of every (arch × shape) cell, on fake
-tensors of one device (``src/repro/launch/dryrun.py`` on a mesh of one).
+"""Dry run: the real step of every (arch × shape) cell on fake tensors, on
+one device or on the production mesh (``src/repro/launch/dryrun.py``).
 
 For each cell this builds the cell's model and inputs under a
 ``FakeTensorMode`` on the device (no memory, no data), runs the cell's
@@ -21,10 +21,26 @@ loss functions — and records:
 
 The kernels are operators with fake implementations, so the fakes pass
 through them; nothing reads data, so the step's shapes decide both
-numbers.  ``collectives`` is empty: one device.  The production mesh
-(``--multi-pod``, ``--fsdp``) and the HLO collective parser belong to the
-multi-card slice; the reference's ``--unroll`` has no counterpart (no
-``scan``).
+numbers.  On one device ``collectives`` is empty.
+
+On the production mesh (``--production``: (16, 16) ``("data",
+"model")``; ``--multi-pod``: (2, 16, 16) with ``"pod"``) the cell runs on
+a fake process group of 256 or 512 ranks, seen from rank 0: the model,
+optimizer state, batch and cache are DTensors of fakes with the placements
+of the reference's ``build_cell`` (:func:`place_cell`: the parameters by
+their family's policy in ``dist.sharding``, ``--fsdp auto`` meaning FSDP
+for MoE; batches by the first-dimension prefix rule, so every shard is
+even; recsys ``cand_ids`` on ``model``; a batch-1 decode's KV cache along
+the sequence; the optimizer state as the parameters), and the step runs
+under ``implicit_replication`` (a plain tensor that model code makes
+counts as replicated).  Then memory and FLOPs are each device's (the
+local shards' storages; the local operators' FLOPs), ``collectives``
+holds each kind's count and result bytes a device (:class:`Collectives`,
+``CommDebugMode``'s count with the bytes added: the counterpart of the
+reference's HLO parser), and ``layer_axis_leaves`` the transformer leaves
+whose stacked form the reference shards along L (``dist.sharding``).  A
+cell that fails records ``ok: false`` and its error.  The reference's
+``--unroll`` has no counterpart (no ``scan``).
 
 :func:`run_cell` also runs a cell for real (``seed``): the model drawn
 from the seed, inputs drawn in range from it, a decode cache at
@@ -35,14 +51,19 @@ estimate.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
-      [--shape S] [--out FILE] [--device cpu|cuda]
+      [--shape S] [--cell A:S ...] [--out FILE] [--device cpu|cuda]
+      [--production [--multi-pod] [--fsdp {auto,on,off}]]
 
 The default device is the card; records are appended to
-``experiments/dryrun_torch_<device>x1.jsonl``.
+``experiments/dryrun_torch_<mesh>.jsonl`` (``cudax1``, ``cpux1`` on one
+device; ``pod16x16``, ``pod2x16x16`` on the production mesh, the device
+in each record).  A fake group and a real one cannot share a process: run
+the production mesh in a process of its own.
 """
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import sys
@@ -53,7 +74,12 @@ import weakref
 from typing import Any, Dict
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.debug import CommDebugMode
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro_torch.dist import sharding as shd
+from repro_torch.dist.on_mesh import local_part, replicated_implicitly
 
 GRANULE = 512      # the CUDA caching allocator's block granule (bytes)
 
@@ -64,12 +90,12 @@ def _rounded(nbytes: int) -> int:
 
 def _tensors(tree) -> list:
     """The tensors in ``tree`` (tuples, lists, dicts; a module's
-    parameters and buffers)."""
+    parameters and buffers), a DTensor as its local shard."""
     out, stack = [], [tree]
     while stack:
         x = stack.pop()
         if isinstance(x, torch.Tensor):
-            out.append(x)
+            out.append(local_part(x))
         elif isinstance(x, (list, tuple)):
             stack.extend(x)
         elif isinstance(x, dict):
@@ -85,7 +111,11 @@ class LiveBytes(TorchDispatchMode):
     take, if made outside one), each counted from the first time it is
     seen until it is freed (a ``weakref.finalize`` of the storage), and
     their peak; and ``accessed``: the bytes of every non-view operator's
-    tensor inputs and outputs.  Works on fake and real tensors alike."""
+    tensor inputs and outputs.  Works on fake and real tensors alike.  An
+    operator on DTensors is left to DTensor (``NotImplemented``), so what
+    is counted are the local operators it runs on this rank's shards and
+    the collectives between them: each device's bytes.  Outer modes (the
+    FLOP counter, :class:`Collectives`) see only those too."""
 
     def __init__(self, device: torch.device):
         super().__init__()
@@ -114,6 +144,8 @@ class LiveBytes(TorchDispatchMode):
         weakref.finalize(st, self._free, n)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
         ins = _tensors((args, kwargs))
         for t in ins:
@@ -126,6 +158,79 @@ class LiveBytes(TorchDispatchMode):
             self.accessed += sum(t.numel() * t.element_size()
                                  for t in ins + outs)
         return out
+
+
+# the reference's collective kinds, by the functional collective's name
+KINDS = {"all_gather_into_tensor": "all-gather", "all_reduce": "all-reduce",
+         "reduce_scatter_tensor": "reduce-scatter",
+         "all_to_all_single": "all-to-all", "broadcast": "broadcast"}
+
+
+class Collectives(CommDebugMode):
+    """``CommDebugMode`` that also sums each collective's result bytes a
+    device by kind (``stats``: ``{kind: {"count", "bytes"}}``), as the
+    reference's ``collective_stats`` sums result shapes in the HLO."""
+
+    def __init__(self):
+        super().__init__()
+        self.stats: Dict[str, Dict[str, float]] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = super().__torch_dispatch__(func, types, args, kwargs)
+        name = getattr(getattr(func, "_overloadpacket", None), "__name__",
+                       "")
+        kind = KINDS.get(name.removesuffix("_coalesced").rstrip("_"))
+        if kind and out is not NotImplemented:
+            st = self.stats.setdefault(kind, {"count": 0, "bytes": 0.0})
+            st["count"] += 1
+            st["bytes"] += float(sum(t.numel() * t.element_size()
+                                     for t in _tensors(out)))
+        return out
+
+
+@contextlib.contextmanager
+def shadow_ops_hidden():
+    """DTensor derives an operator's output shape by running it once on
+    global-shape fakes (the sharding propagator's tensor-meta step), under
+    whatever modes are active: those are no device's work or memory.
+    Inside this context that step runs with every mode off (on fakes of
+    its own), so :class:`LiveBytes`, the FLOP counter and
+    :class:`Collectives` see each rank's local operators only."""
+    from torch.distributed.tensor._sharding_prop import \
+        ShardingPropagator as SP
+    from torch.utils._python_dispatch import _disable_current_modes
+    saved = {name: SP.__dict__[name] for name in (
+        "_propagate_tensor_meta_non_cached", "_propagate_tensor_meta")
+        if name in SP.__dict__}
+    if not saved:
+        raise RuntimeError("this torch's DTensor has no tensor-meta step "
+                           "to hide: the dry run cannot count per device")
+
+    def hidden(fn):
+        def run(self, op_schema):
+            with _disable_current_modes():
+                return fn(self, op_schema)
+        return run
+
+    for name, fn in saved.items():
+        setattr(SP, name, hidden(fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(SP, name, fn)
+
+
+def exact_bytes(tree) -> int:
+    """Bytes of a cell's arguments as the reference counts them: every
+    parameter (not the RoPE buffers), optimizer, batch and cache tensor,
+    a DTensor's local shard, unrounded."""
+    out = 0
+    for x in (tree if isinstance(tree, (list, tuple)) else [tree]):
+        if isinstance(x, torch.nn.Module):
+            x = list(x.parameters())
+        out += sum(t.numel() * t.element_size() for t in _tensors(x))
+    return out
 
 
 def storages_bytes(tree, device_type: str) -> Dict[Any, int]:
@@ -242,42 +347,142 @@ def build_cell(arch_name: str, shape_name: str, device, cfg=None,
     return serve, (m, batch), meta
 
 
+def first_dim_sharding(mesh, leaf, preferred) -> tuple:
+    """The reference's ``_first_dim_sharding``: dim 0 over the longest
+    prefix of the axes ``preferred`` whose size it divides."""
+    if leaf.dim() == 0:
+        return shd.placements(mesh, ())
+    return shd.placements(mesh, (shd.prefix_entry(mesh, leaf.shape[0],
+                                                  preferred),))
+
+
+def place_cell(arch_name: str, shape_name: str, args, mesh,
+               fsdp_mode: str = "auto"):
+    """(args, meta): a cell's arguments from :func:`build_cell` as
+    DTensors on ``mesh`` with the placements of the reference's
+    ``build_cell``; the model's parameters are replaced in place."""
+    from torch.distributed.tensor import distribute_tensor
+    spec = __import__("repro_torch.configs", fromlist=["get_arch"]
+                      ).get_arch(arch_name)
+    model = args[0]
+    dp = shd.data_axes(mesh)
+    meta: Dict[str, Any] = {}
+    if spec.family == "lm":
+        fsdp = (model.cfg.moe is not None if fsdp_mode == "auto"
+                else fsdp_mode == "on")
+        p_sh = shd.lm_param_sharding(mesh, model, fsdp=fsdp)
+        meta["fsdp"] = fsdp
+        meta["layer_axis_leaves"] = {
+            leaf: {k: (v if k == "extra_bytes" else
+                       [list(e) if isinstance(e, tuple) else e for e in v])
+                   for k, v in info.items()}
+            for leaf, info in shd.layer_axis_leaves(mesh, model,
+                                                    fsdp).items()}
+    elif spec.family == "gnn":
+        p_sh = shd.gnn_param_sharding(mesh, model)
+    else:
+        p_sh = shd.recsys_param_sharding(mesh, model)
+    shd.distribute_module(model, mesh, p_sh)
+
+    def batch(tree, preferred):
+        return {k: distribute_tensor(
+            v, mesh, shd.placements(mesh, ("model",)) if k == "cand_ids"
+            else first_dim_sharding(mesh, v, preferred))
+            for k, v in tree.items()}
+
+    rest = list(args[1:])
+    if len(rest) == 2 and isinstance(rest[0], dict) and "mu" in rest[0]:
+        o_sh = shd.opt_state_sharding(p_sh)
+        opt = rest[0]
+        rest[0] = {"mu": shd.distribute(opt["mu"], mesh, o_sh["mu"]),
+                   "nu": shd.distribute(opt["nu"], mesh, o_sh["nu"]),
+                   "step": distribute_tensor(opt["step"], mesh,
+                                             o_sh["step"])}
+        pref = tuple(mesh.mesh_dim_names) if spec.family == "gnn" else dp
+        rest[1] = batch(rest[1], pref)
+    elif len(rest) == 2:                      # decode: cache, tokens
+        cache, tokens = rest
+        b = tokens.shape[0]
+        long_ctx = b == 1
+        c_sh = shd.lm_cache_sharding(mesh, b, long_context=long_ctx)
+        rest[0] = shd.distribute(cache, mesh, c_sh)
+        rest[1] = distribute_tensor(
+            tokens, mesh, shd.placements(mesh, ()) if long_ctx
+            else first_dim_sharding(mesh, tokens, dp))
+    elif isinstance(rest[0], dict):           # recsys and GNN serving
+        pref = tuple(mesh.mesh_dim_names) if spec.family == "gnn" else dp
+        rest[0] = batch(rest[0], pref)
+    else:                                     # prefill tokens
+        rest[0] = distribute_tensor(rest[0], mesh,
+                                    first_dim_sharding(mesh, rest[0], dp))
+    return (model, *rest), meta
+
+
+def mesh_name(mesh) -> str:
+    """``pod16x16``, ``pod2x16x16``: the reference's names."""
+    return "pod" + "x".join(str(n) for n in mesh.mesh.shape)
+
+
 def run_cell(arch_name: str, shape_name: str, device="cuda", cfg=None,
-             seed: int = None) -> Dict[str, Any]:
+             seed: int = None, mesh=None, fsdp_mode: str = "auto"
+             ) -> Dict[str, Any]:
     """The cell's record: on fakes of ``device`` (the dry run), or for
-    real with ``seed`` (see the module's docstring)."""
+    real with ``seed`` (see the module's docstring); on ``mesh`` (a
+    ``DeviceMesh`` over a fake group, on fakes only) each device's."""
     from torch.utils.flop_counter import FlopCounterMode
 
     t0 = time.time()
     dev = torch.device(device)
-    rec: Dict[str, Any] = {"arch": arch_name, "shape": shape_name,
-                           "mesh": f"{dev.type}x1", "n_devices": 1,
-                           "fake": seed is None}
+    rec: Dict[str, Any] = {
+        "arch": arch_name, "shape": shape_name,
+        "mesh": mesh_name(mesh) if mesh is not None else f"{dev.type}x1",
+        "n_devices": mesh.size() if mesh is not None else 1,
+        "device": dev.type, "fake": seed is None}
     try:
         if seed is None:
             from torch._subclasses.fake_tensor import FakeTensorMode
             mode = FakeTensorMode()
+        elif mesh is not None:
+            raise ValueError("a cell runs on a mesh on fakes only")
         else:
             mode = contextlib.nullcontext()
         counter = FlopCounterMode(display=False)
         live = LiveBytes(dev)
+        comms = Collectives() if mesh is not None else \
+            contextlib.nullcontext()
+        on_mesh = contextlib.ExitStack()
+        if mesh is not None:
+            on_mesh.enter_context(replicated_implicitly())
+            on_mesh.enter_context(shadow_ops_hidden())
         allocator = seed is not None and dev.type == "cuda"
-        with mode, live:
-            if allocator:
-                torch.cuda.synchronize(dev)
-                before = torch.cuda.memory_allocated(dev)
-            step, args, meta = build_cell(arch_name, shape_name, dev, cfg,
-                                          seed)
-            rec.update(meta)
-            arg_st = storages_bytes(args, dev.type)
-            # the step's peak: building's temporaries (a real init's
-            # draws) are gone, the arguments stay
-            arguments, live.peak, live.accessed = live.live, live.live, 0
-            if allocator:
-                torch.cuda.synchronize(dev)
-                torch.cuda.reset_peak_memory_stats(dev)
+        with mode:
+            with live:
+                if allocator:
+                    torch.cuda.synchronize(dev)
+                    before = torch.cuda.memory_allocated(dev)
+                step, args, meta = build_cell(arch_name, shape_name, dev,
+                                              cfg, seed)
+                rec.update(meta)
+                if mesh is not None:
+                    args, meta = place_cell(arch_name, shape_name, args,
+                                            mesh, fsdp_mode)
+                    rec.update(meta)
+                    rec["argument_exact_bytes"] = float(exact_bytes(args))
+                    if "cache_bytes" in rec:
+                        rec["cache_bytes"] = sum(storages_bytes(
+                            args[1], dev.type).values())
+                gc.collect()     # the global fakes that placing replaced
+                arg_st = storages_bytes(args, dev.type)
+                # the step's peak: building's temporaries (a real init's
+                # draws) are gone, the arguments stay
+                arguments, live.peak, live.accessed = live.live, live.live, 0
+                if allocator:
+                    torch.cuda.synchronize(dev)
+                    torch.cuda.reset_peak_memory_stats(dev)
             t1 = time.time()
-            with counter:
+            # the counters outside LiveBytes: on a mesh they see only the
+            # local operators, which LiveBytes passes on
+            with on_mesh, counter, comms, live:
                 out = step(*args)
             if allocator:
                 torch.cuda.synchronize(dev)
@@ -297,7 +502,7 @@ def run_cell(arch_name: str, shape_name: str, device="cuda", cfg=None,
                 torch.cuda.max_memory_allocated(dev) - before)
         rec["cost"] = {"flops": float(counter.get_total_flops()),
                        "bytes accessed": float(accessed)}
-        rec["collectives"] = {}
+        rec["collectives"] = comms.stats if mesh is not None else {}
         capacity = device_memory(dev)
         rec["capacity_bytes"] = float(capacity)
         rec["fits"] = bool(peak <= capacity)
@@ -313,33 +518,53 @@ def run_cell(arch_name: str, shape_name: str, device="cuda", cfg=None,
 def main(argv=None):
     from repro_torch.configs import ARCHS
     from repro_torch.device import resolve_device
+    from repro_torch.launch import mesh as M
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
+    ap.add_argument("--cell", action="append", default=[],
+                    help="ARCH:SHAPE, repeatable: these cells only")
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu: the fakes' device")
+    ap.add_argument("--production", action="store_true",
+                    help="the production mesh (16, 16) on a fake group of "
+                         "256 ranks")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the (2, 16, 16) production mesh, 512 ranks")
+    ap.add_argument("--fsdp", default="auto", choices=["auto", "on", "off"])
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    mesh_name = f"{dev.type}x1"
-    out_path = args.out or f"experiments/dryrun_torch_{mesh_name}.jsonl"
+    production = args.production or args.multi_pod
+    name = ("pod2x16x16" if args.multi_pod else "pod16x16") if production \
+        else f"{dev.type}x1"
+    out_path = args.out or f"experiments/dryrun_torch_{name}.jsonl"
     os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
 
+    wanted = [tuple(c.split(":", 1)) for c in args.cell]
     cells = []
-    for name, spec in ARCHS.items():
-        if args.arch and name != args.arch:
+    for arch, spec in ARCHS.items():
+        if args.arch and arch != args.arch:
             continue
         for shape_name in spec.cells(spec.config):
             if args.shape and shape_name != args.shape:
                 continue
-            cells.append((name, shape_name))
+            if wanted and (arch, shape_name) not in wanted:
+                continue
+            cells.append((arch, shape_name))
 
+    group = M.fake_process_group(512 if args.multi_pod else 256) \
+        if production else contextlib.nullcontext()
     n_ok = 0
-    with open(out_path, "a") as fh:
+    with group, open(out_path, "a") as fh:
+        mesh = M.make_production_mesh(multi_pod=args.multi_pod,
+                                      device_type=dev.type) \
+            if production else None
         for arch_name, shape_name in cells:
-            rec = run_cell(arch_name, shape_name, dev)
+            rec = run_cell(arch_name, shape_name, dev, mesh=mesh,
+                           fsdp_mode=args.fsdp)
             line = {k: v for k, v in rec.items() if k != "traceback"}
             fh.write(json.dumps(line) + "\n")
             fh.flush()
@@ -354,7 +579,7 @@ def main(argv=None):
                 print(rec["error"], flush=True)
             else:
                 n_ok += 1
-    print(f"\n{n_ok}/{len(cells)} cells traced on {mesh_name}", flush=True)
+    print(f"\n{n_ok}/{len(cells)} cells traced on {name}", flush=True)
     return 0 if n_ok == len(cells) else 1
 
 

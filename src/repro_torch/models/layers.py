@@ -12,6 +12,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.on_mesh import (contiguous_grad, gather_last,
+                                      grad_like, is_dtensor, keep_shards,
+                                      rowwise)
+
 NEG_INF = -1e30
 
 
@@ -22,6 +26,8 @@ def _inv_sqrt(d: int) -> torch.Tensor:
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
+    if is_dtensor(x):      # each rank its own rows (on_mesh.rowwise)
+        return rowwise(lambda a, w: rms_norm(a, w, eps), x, weight)
     dtype = x.dtype
     x = x.float()
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
@@ -68,9 +74,37 @@ def rope_rotate(x: torch.Tensor, c: torch.Tensor,
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = torch.matmul(x, w_gate)
-    u = torch.matmul(x, w_up)
-    return torch.matmul(F.silu(g) * u, w_down)
+    # on DTensors: the hidden's batch and width cuts only (Megatron's),
+    # and each gradient back in its own tensor's placement (DTensor's
+    # backward would cut the sequence too, which the weights' gradient
+    # products cannot flatten)
+    g = grad_like(torch.matmul(x, w_gate))
+    u = grad_like(torch.matmul(x, w_up))
+    h = grad_like(keep_shards(F.silu(g) * u, (0, g.dim() - 1)))
+    return torch.matmul(h, w_down)
+
+
+def per_head(fn, q, k, v, **kwargs):
+    """``fn(q, k, v, **kwargs)`` on DTensors, each rank on its own batch
+    rows and KV heads (dims 0 and 2 of q, k and v, where all three are cut
+    alike; whole elsewhere): attention is independent across both, and
+    DTensor's own products would flatten a cut batch and cut heads into a
+    strided shard it cannot multiply.  The local tensors and gradients
+    that leave the ``local_map`` are contiguous: DTensor views them as
+    its global layout says they are."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    q, k, v = (keep_shards(x, (0, 2)) for x in (q, k, v))
+    common = [p if p == k.placements[i] == v.placements[i] else Replicate()
+              for i, p in enumerate(q.placements)]
+    def local(a, b, c):
+        a, b, c = (contiguous_grad(x) for x in (a, b, c))
+        return fn(a, b, c, **kwargs).contiguous()
+
+    return local_map(local, out_placements=common,
+                     in_placements=(common, common, common),
+                     device_mesh=q.device_mesh, redistribute_inputs=True)(
+        q, k, v)
 
 
 def causal_gqa_attention(q: torch.Tensor, k: torch.Tensor,
@@ -80,6 +114,8 @@ def causal_gqa_attention(q: torch.Tensor, k: torch.Tensor,
     q [B, S, Hkv, G, Dh]; k/v [B, S, Hkv, Dh] → [B, S, Hkv, G, Dh].  The G
     query heads of a group share their KV head without repeating it.
     """
+    if is_dtensor(q):
+        return per_head(causal_gqa_attention, q, k, v)
     s, dh = q.shape[1], q.shape[-1]
     scale = _inv_sqrt(dh)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float(), k.float()) * scale
@@ -127,6 +163,9 @@ def chunked_causal_gqa_attention(q: torch.Tensor, k: torch.Tensor,
     score masked to -1e30, which leaves (m, l, acc) bit for bit as they
     were (alpha = 1, p = 0), since the first KV chunk already set m.
     """
+    if is_dtensor(q):
+        return per_head(chunked_causal_gqa_attention, q, k, v,
+                        q_chunk=q_chunk, kv_chunk=kv_chunk)
     b, s, hkv, g, dh = q.shape
     nq, nk = s // q_chunk, s // kv_chunk
     scale = _inv_sqrt(dh)            # a CPU scalar: no copy to the card
@@ -171,7 +210,12 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     logits = logits.float()
     mask = labels != ignore_id
     labels_safe = torch.where(mask, labels, 0).long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
-    nll = (logz - gold) * mask
+    if is_dtensor(logits):    # max and sum over the cut vocabulary
+        m = logits.amax(dim=-1, keepdim=True).detach()
+        e = grad_like(torch.exp(logits - m))
+        logz = (m + torch.log(e.sum(-1, keepdim=True)))[..., 0]
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+    gold = gather_last(logits, labels_safe)
+    nll = grad_like((logz - gold) * mask)
     return nll.sum() / torch.clamp(mask.sum(), min=1)

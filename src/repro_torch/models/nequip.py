@@ -40,6 +40,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.dist.on_mesh import (grad_like, is_dtensor, rows_like,
+                                      segment_sum, take_rows)
+
 N_PATHS = 8          # tensor-product paths a layer (radial weights each)
 LAYER_LEAVES = ("r_w1", "r_w2", "mix0", "mix1", "mix2", "gate1", "gate2",
                 "self0")
@@ -145,26 +148,60 @@ def bessel_rbf(r: torch.Tensor, n_rbf: int, cutoff: float) -> torch.Tensor:
 
 
 def _sym_traceless(m: torch.Tensor) -> torch.Tensor:
-    """Project [..., 3, 3] onto its symmetric-traceless (l=2) part."""
+    """Project [..., 3, 3] onto its symmetric-traceless (l=2) part (on
+    DTensors each rank its own rows, the 3 × 3 whole, through
+    ``local_map``: DTensor has no strategy for the trace's backward in
+    every version)."""
+    if is_dtensor(m):
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import local_map
+        places = [Replicate() if isinstance(p, Shard)
+                  and p.dim >= m.dim() - 2 else p for p in m.placements]
+        return local_map(_sym_traceless, out_placements=places,
+                         in_placements=(places,), device_mesh=m.device_mesh,
+                         redistribute_inputs=True)(m)
     sym = 0.5 * (m + m.transpose(-1, -2))
     tr = torch.diagonal(sym, dim1=-2, dim2=-1).sum(-1)[..., None, None]
     eye = torch.eye(3, dtype=m.dtype, device=m.device)
     return sym - tr * eye / 3.0
 
 
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.cross(a, b, dim=-1)``; on DTensors (cut by rows, the
+    3 whole) each rank's own rows, through ``local_map`` (DTensor has no
+    strategy for the cross product in every version)."""
+    if not is_dtensor(a):
+        return torch.linalg.cross(a, b, dim=-1)
+    from torch.distributed.tensor.experimental import local_map
+    return local_map(lambda x, y: torch.linalg.cross(x, y, dim=-1),
+                     out_placements=list(a.placements),
+                     in_placements=(a.placements, a.placements),
+                     device_mesh=a.device_mesh, redistribute_inputs=True)(
+        a, b)
+
+
+def _rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``x``; on DTensors, its rows sharded as ``ids``' and every other
+    dimension whole, its gradient placed so too (the channel products'
+    backward would otherwise reach a flattened, strided shard)."""
+    return grad_like(rows_like(x, ids))
+
+
 def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.ops.segment_sum(x, ids, num_segments=n)`` for ids in [0, n)."""
-    return x.new_zeros((n,) + x.shape[1:]).index_add(0, ids, x)
+    """``jax.ops.segment_sum(x, ids, num_segments=n)`` for ids in [0, n);
+    on DTensors, the sums' rows sharded as the ids' (:func:`rows_like`)."""
+    return rows_like(segment_sum(x, ids, n), ids)
 
 
 def _interact(cfg, lp, h0, h1, h2, senders, receivers, rbf, u, n_nodes):
     """One interaction block: TP messages over edges → segment-sum →
     update."""
     c = cfg.d_hidden
-    w = F.silu(rbf @ lp["r_w1"]) @ lp["r_w2"]            # [E, 8c]
+    w = rows_like(F.silu(rbf @ lp["r_w1"]) @ lp["r_w2"], senders)  # [E, 8c]
     w = w.reshape(-1, N_PATHS, c)                        # per-path radial wts
 
-    s0, s1, s2 = h0[senders], h1[senders], h2[senders]   # [E, c(,3,(3))]
+    s0, s1, s2 = (rows_like(take_rows(h, senders), senders)
+                  for h in (h0, h1, h2))                 # [E, c(,3,(3))]
     y1 = u[:, None, :]                                   # [E, 1, 3]
     y2 = _sym_traceless(u[:, :, None] * u[:, None, :])   # [E, 3, 3]
 
@@ -174,15 +211,13 @@ def _interact(cfg, lp, h0, h1, h2, senders, receivers, rbf, u, n_nodes):
           + w[:, 2] * torch.einsum("ecij,eij->ec", s2, y2))      # (2,2)->0
     m1 = (w[:, 3, :, None] * s0[:, :, None] * y1         # (0,1)->1
           + w[:, 4, :, None] * s1                        # (1,0)->1
-          + w[:, 5, :, None] * torch.linalg.cross(
-              s1, y1.expand_as(s1), dim=-1)              # (1,1)->1
+          + w[:, 5, :, None] * _cross(s1, y1.expand_as(s1))  # (1,1)->1
           + w[:, 6, :, None] * torch.einsum("ecij,ej->eci", s2, u))  # (2,1)->1
     m2 = (w[:, 7, :, None, None]
           * _sym_traceless(s1[..., :, None] * y1[..., None, :]))    # (1,1)->2
 
-    a0 = _segment_sum(m0, receivers, n_nodes)
-    a1 = _segment_sum(m1, receivers, n_nodes)
-    a2 = _segment_sum(m2, receivers, n_nodes)
+    a0, a1, a2 = (_segment_sum(_rows(m, receivers), receivers, n_nodes)
+                  for m in (m0, m1, m2))
 
     # node update: channel mixing per l + gated nonlinearity
     g1 = torch.sigmoid(a0 @ lp["gate1"])
@@ -191,7 +226,7 @@ def _interact(cfg, lp, h0, h1, h2, senders, receivers, rbf, u, n_nodes):
     h1 = h1 + g1[:, :, None] * torch.einsum("eci,cz->ezi", a1, lp["mix1"])
     h2 = h2 + g2[:, :, None, None] * torch.einsum("ecij,cz->ezij", a2,
                                                   lp["mix2"])
-    return h0, h1, h2
+    return tuple(_rows(h, receivers) for h in (h0, h1, h2))
 
 
 def apply(model: Nequip, positions: torch.Tensor, species: torch.Tensor,
@@ -205,7 +240,7 @@ def apply(model: Nequip, positions: torch.Tensor, species: torch.Tensor,
     n, c = positions.shape[0], cfg.d_hidden
     dt = model.species_embed.dtype
     senders, receivers = senders.long(), receivers.long()
-    h0 = model.species_embed[species.long() % cfg.n_species]
+    h0 = take_rows(model.species_embed, species.long() % cfg.n_species)
     if node_feats is not None and cfg.d_feat:
         h0 = h0 + (node_feats.to(dt) @ model.feat_embed)
     h1 = torch.zeros((n, c, 3), dtype=dt, device=positions.device)
@@ -214,7 +249,8 @@ def apply(model: Nequip, positions: torch.Tensor, species: torch.Tensor,
     # safe norm: zero-length edges (self loops / padding) contribute nothing
     # and their gradient path is cleanly severed (where on both sides),
     # otherwise d(rel/ε)/d(pos) injects huge non-equivariant force noise.
-    rel = positions[receivers] - positions[senders]
+    rel = rows_like(take_rows(positions, receivers)
+                    - take_rows(positions, senders), senders)
     r2 = torch.sum(rel * rel, dim=-1)
     ok = r2 > 1e-10
     r = torch.sqrt(torch.where(ok, r2, 1.0))

@@ -42,6 +42,8 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.dist.on_mesh import (is_dtensor, local_range, local_summed,
+                                      per_row, settled, whole_grad)
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 
 TABLE_LEAVES = ("tables", "linear", "user_table", "item_table", "item_embed",
@@ -149,7 +151,9 @@ def _mlp(dims: Sequence[int], dtype, device) -> nn.ModuleList:
 def _mlp_apply(layers, x: torch.Tensor, final_act: bool = False
                ) -> torch.Tensor:
     for i, layer in enumerate(layers):
-        x = torch.matmul(x, layer.w) + layer.b
+        # on DTensors a product's pending sum is reduced before the bias
+        # is added (a cut bias cannot become a pending sum everywhere)
+        x = settled(torch.matmul(x, layer.w)) + layer.b
         if i < len(layers) - 1 or final_act:
             x = torch.relu(x)
     return x
@@ -297,6 +301,8 @@ def _field_lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     [F·V, D] with field f's ids offset by f·V.  The wrap and NaN rule is
     applied per field first, so a bad id never reads another field's row:
     it becomes F·V, which is out of range of the whole view."""
+    if is_dtensor(tables):
+        return _field_lookup_sharded(tables, ids)
     f, v, d = tables.shape
     if f * v > np.iinfo(np.int32).max:
         raise ValueError(f"{f} tables of {v} rows exceed int32 row ids")
@@ -306,6 +312,53 @@ def _field_lookup(tables: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     flat = torch.where(ids < 0, ids + v, ids) + offset
     flat = torch.where(ok, flat, f * v).to(torch.int32)
     return _take(tables.view(f * v, d), flat)
+
+
+def _field_lookup_sharded(tables: torch.Tensor, ids: torch.Tensor
+                          ) -> torch.Tensor:
+    """:func:`_field_lookup` on DTensor tables whose rows (dim 1) may be
+    cut: each rank looks up the ids in its own rows of every field (one
+    launch over its [F·rows, D] view; ids elsewhere weighted 0) and the
+    ranks' bags are added (``local_summed``); where the tables are whole
+    the output follows the ids' batch cut and the tables' gradient is
+    summed over those ranks.  An id out of range adds 0 here, where the
+    plain lookup reads the out-of-range row."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = tables.device_mesh
+    f, v, d = tables.shape
+    if not is_dtensor(ids):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    out_pl, ids_pl, grad_dims = [], [], []
+    for i, (tp, ip) in enumerate(zip(tables.placements, ids.placements)):
+        if tp == Shard(1):
+            out_pl.append(Partial())
+            ids_pl.append(Replicate())
+        elif tp.is_replicate():
+            keep = ip == Shard(0)
+            out_pl.append(Shard(0) if keep else Replicate())
+            ids_pl.append(Shard(0) if keep else Replicate())
+            if keep:
+                grad_dims.append(i)
+        else:
+            raise ValueError(f"tables placed {tables.placements} have no "
+                             f"sharded lookup")
+    lo, rows = local_range(tables, 1)
+
+    def look(t, i):
+        t = whole_grad(t, mesh, grad_dims)
+        i = i.long()
+        ok = (i >= -v) & (i < v)
+        at = torch.where(i < 0, i + v, i) - lo
+        held = ok & (at >= 0) & (at < rows)
+        flat = torch.where(held, at + torch.arange(f, device=i.device) * rows,
+                           0).reshape(-1, 1)
+        got = bag_ops.embedding_bag_padded(
+            t.reshape(f * rows, d), flat, held.reshape(-1, 1).float())
+        return got.reshape(tuple(i.shape) + (d,))
+
+    return local_summed(look, out_pl, (tables.placements, ids_pl), mesh,
+                        tables, ids)
 
 
 # --------------------------------------------------------------------- #
@@ -320,7 +373,7 @@ def dlrm_forward(model: DLRM, dense: torch.Tensor, sparse_ids: torch.Tensor
     inter = torch.bmm(feats, feats.transpose(1, 2))
     n = feats.shape[1]
     iu, ju = torch.triu_indices(n, n, 1, device=feats.device)
-    pairs = inter[:, iu, ju]                                 # [B, n_pairs]
+    pairs = per_row(lambda t: t[:, iu, ju], inter)           # [B, n_pairs]
     z = torch.cat([d, pairs.to(d.dtype)], dim=1)
     return _mlp_apply(model.top, z)[:, 0]
 

@@ -38,7 +38,11 @@ Where a line-by-line port goes wrong, and what this one does:
   can lose its expert's output.  :func:`moe_dispatch` resolves each
   slot's winner by that rule with an integer ``amax`` (a scatter on
   duplicate indices leaves the winner undefined on CUDA), so the
-  dispatch is the same on either device and equal to the reference's.
+  dispatch is the same on either device and equal to the reference's;
+- on DTensors (a mesh, ``dist.sharding``) DTensor picks each operator's
+  layout alone where the reference's compiler plans the step, so the
+  lookups, the cache write, the dispatch and a few layouts go through
+  ``dist.on_mesh`` (each a no-op on plain tensors).
 """
 
 from __future__ import annotations
@@ -53,6 +57,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.vectorized import stable_topk
+from repro_torch.dist.on_mesh import (grad_like, is_dtensor, keep_shards,
+                                      local_range, logits_layout,
+                                      replicated_local, settled, split_last,
+                                      take_rows)
+from repro_torch.dist.sharding import placements
 from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
 
 from .layers import (apply_rope, causal_gqa_attention,
@@ -89,10 +98,12 @@ class TransformerConfig:
     dtype: str = "bfloat16"
     remat: bool = True        # recompute each layer in the backward
     # flash-style blocked attention chunk sizes (0 = off); the JAX
-    # config's scan_unroll and moe_shard steer its compiler and sharding
-    # and have no counterpart here
+    # config's scan_unroll steers its compiler and has no counterpart here
     attn_chunk_q: int = 0
     attn_chunk_kv: int = 0
+    # "" | "all" | "combine": the reference's sharding constraints inside
+    # moe_block, here a redistribute of DTensors (nothing off a mesh)
+    moe_shard: str = ""
 
     @property
     def group_size(self) -> int:
@@ -259,11 +270,12 @@ def _qkv(cfg: TransformerConfig, lp: Mapping[str, torch.Tensor],
     q = torch.matmul(xn, lp["wq"])
     k = torch.matmul(xn, lp["wk"])
     v = torch.matmul(xn, lp["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
-    q = q.reshape(b, s, hkv, g, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+    if cfg.qkv_bias:    # on DTensors: see recsys._mlp_apply
+        q, k, v = (settled(q) + lp["bq"], settled(k) + lp["bk"],
+                   settled(v) + lp["bv"])
+    q = split_last(q, hkv, g, hd)
+    k = split_last(k, hkv, hd)
+    v = split_last(v, hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"])
         k = rms_norm(k, lp["k_norm"])
@@ -343,12 +355,25 @@ def moe_block(x: torch.Tensor, lp: Mapping[str, torch.Tensor],
     t, d = x.shape
     probs = torch.softmax(torch.matmul(x.float(), lp["router"].float()),
                           dim=-1)
-    top_p, top_e, pos, keep, idx_buf = moe_dispatch(probs, m)
+    if is_dtensor(probs):    # integer work on [T, E]: whole on every rank
+        top_p, top_e, pos, keep, idx_buf = replicated_local(
+            lambda pr: moe_dispatch(pr, m), 5, probs)
+    else:
+        top_p, top_e, pos, keep, idx_buf = moe_dispatch(probs, m)
     c = idx_buf.shape[1]
     xe = torch.cat([x, x.new_zeros((1, d))])[idx_buf]        # [E, C, D]
-    h = F.silu(torch.bmm(xe, lp["e_gate"])) * torch.bmm(xe, lp["e_up"])
-    ye = torch.bmm(h, lp["e_down"])                           # [E, C, D]
+    if cfg.moe_shard == "all":
+        xe = _constrain(xe, ("model", "data", None))
+    # on DTensors the pending sums of the experts' products are reduced
+    # before the next product (a sum times a cut weight has no strategy)
+    h = settled(F.silu(torch.bmm(xe, lp["e_gate"]))
+                * torch.bmm(xe, lp["e_up"]))
+    ye = settled(torch.bmm(h, lp["e_down"]))                  # [E, C, D]
+    if cfg.moe_shard == "all":
+        ye = _constrain(ye, ("model", "data", None))
     y_slots = ye[top_e, torch.where(keep, pos, c - 1)]        # [T, K, D]
+    if cfg.moe_shard:
+        y_slots = _constrain(y_slots, ("data", None, None))
     w = (top_p * keep).to(ye.dtype)
     y = torch.bmm(w[:, None, :], y_slots)[:, 0]
     if m.n_shared:
@@ -359,8 +384,21 @@ def moe_block(x: torch.Tensor, lp: Mapping[str, torch.Tensor],
     return y.to(x.dtype)
 
 
+def _constrain(x: torch.Tensor, spec) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint(x, P(*spec))``: a DTensor
+    redistributed to ``spec``'s placements on its mesh (an axis the mesh
+    lacks is left out); any other tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    spec = tuple(a if a in names else None for a in spec)
+    return x.redistribute(mesh, placements(mesh, spec))
+
+
 def _mlp(cfg: TransformerConfig, x: torch.Tensor,
          lp: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    x = keep_shards(x, (0,))     # on DTensors: see _layer
     xn = rms_norm(x, lp["mlp_norm"])
     if cfg.moe is None:
         return x + swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"])
@@ -370,6 +408,11 @@ def _mlp(cfg: TransformerConfig, x: torch.Tensor,
 
 def _layer(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
            lp: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    # on DTensors the residual stream keeps only its batch cut: DTensor's
+    # op-by-op choices would cut the sequence too, and the products'
+    # flatten of a cut batch and sequence is a strided shard it cannot
+    # multiply
+    x = keep_shards(x, (0,))
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, lp, rms_norm(x, lp["attn_norm"]))
     q = apply_rope(q.reshape(b, s, -1, cfg.head_dim), cos, sin
@@ -385,7 +428,10 @@ def _layer(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
                                             kv_chunk=kv_chunk)
     else:
         attn = causal_gqa_attention(q, k, v)
-    return _mlp(cfg, x + torch.matmul(attn.reshape(b, s, -1), lp["wo"]), lp)
+    # on DTensors the heads' gradient comes back placed as the flat heads
+    # are, so the flatten's backward can split it again
+    attn = grad_like(attn.reshape(b, s, -1))
+    return _mlp(cfg, x + torch.matmul(attn, lp["wo"]), lp)
 
 
 def _layer_remat(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
@@ -409,7 +455,7 @@ def forward(model: Transformer, tokens: torch.Tensor,
     cfg = model.cfg
     b, s = tokens.shape
     cos, sin = model.rope(s)
-    x = model.embed[tokens]
+    x = take_rows(model.embed, tokens)
     if dtype is not None:
         x = x.to(dtype)
     remat = (cfg.remat and dtype is None and torch.is_grad_enabled()
@@ -422,7 +468,7 @@ def forward(model: Transformer, tokens: torch.Tensor,
     norm, head = model.final_norm, model.lm_head
     if dtype is not None:
         norm, head = norm.to(dtype), head.to(dtype)
-    return torch.matmul(rms_norm(x, norm), head)
+    return logits_layout(torch.matmul(rms_norm(x, norm), head))
 
 
 def loss_fn(model: Transformer, batch) -> torch.Tensor:
@@ -454,6 +500,50 @@ def init_cache(cfg: TransformerConfig, batch: int, seq_len: int,
                                   device=device)}
 
 
+def _cache_rows(b: int, s_loc: int, at: torch.Tensor):
+    """The flat rows [B] of a cache [B, S', ...] that the write at
+    positions ``at`` [B] (relative to the cache's first position) lands
+    on, clamped into it, and the mask [B, 1] of rows whose position falls
+    in it (the others, at or past the cache's end or before its start,
+    rewrite their old value, as JAX's dropped write)."""
+    mine = ((at >= 0) & (at < s_loc))[:, None]
+    row = (torch.arange(b, device=at.device) * s_loc
+           + at.clamp(min=0, max=s_loc - 1))
+    return row, mine
+
+
+def _write_rows(kv: torch.Tensor, new: torch.Tensor, row: torch.Tensor,
+                mine: torch.Tensor) -> torch.Tensor:
+    """kv [B, S', Hkv, D]: flat row ``row[b]`` takes ``new[b]`` where
+    ``mine[b]``, and its old value elsewhere."""
+    flat = kv.view(kv.shape[0] * kv.shape[1], -1)
+    flat.index_copy_(0, row, torch.where(mine, new, flat.index_select(0, row)))
+    return kv
+
+
+def _write_kv_on_mesh(kv: torch.Tensor, new: torch.Tensor,
+                      length: torch.Tensor) -> None:
+    """One layer's cache write of :func:`decode_step` on a DTensor cache,
+    in place: each rank writes the rows and positions it holds (the
+    batch-sharded cache its rows, the sequence-sharded one its range of
+    positions).  ``new`` [B, Hkv·D] and ``length`` come whole on the
+    dimensions the cache shards by position, as the cache on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    s_lo, _ = local_range(kv, 1)
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in kv.placements]
+    new_pl = [Shard(1) if p == Shard(2) else Replicate() if p == Shard(1)
+              else p for p in kv.placements]
+
+    def write(kl, nl, ll):
+        return _write_rows(kl, nl, *_cache_rows(kl.shape[0], kl.shape[1],
+                                                ll - s_lo))
+    local_map(write, out_placements=list(kv.placements),
+              in_placements=(kv.placements, new_pl, rows),
+              device_mesh=kv.device_mesh, redistribute_inputs=True)(
+        kv, new, length)
+
+
 @torch.no_grad()
 def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
                 tokens: torch.Tensor, dtype: Optional[torch.dtype] = None):
@@ -473,19 +563,19 @@ def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
     """
     cfg = model.cfg
     b = tokens.shape[0]
-    s_cache = cache["k"].shape[2]
     length = cache["length"]
     # per step, not per layer: the RoPE rows at each row's position
-    # (clamped to the table, as JAX's gather) and the flat cache row of
-    # the write (clamped; a row at or past the end rewrites its old value)
+    # (clamped to the table, as JAX's gather)
     pos = length.clamp(max=cfg.max_seq_len - 1)[:, None]    # [B, 1]
-    c = model.rope_cos[pos][..., None, :]
-    sn = model.rope_sin[pos][..., None, :]
-    row = (torch.arange(b, device=length.device) * s_cache
-           + length.clamp(max=s_cache - 1))
-    dropped = (length >= s_cache)[:, None]
+    c = take_rows(model.rope_cos, pos)[..., None, :]
+    sn = take_rows(model.rope_sin, pos)[..., None, :]
     attend = length + 1
-    x = model.embed[tokens][:, None, :]                     # [B, 1, D]
+    # a plain cache's flat write rows, once a step; a DTensor cache's
+    # rank-local ones in each layer's write
+    on_mesh = is_dtensor(cache["k"])
+    if not on_mesh:
+        row, mine = _cache_rows(b, cache["k"].shape[2], length)
+    x = take_rows(model.embed, tokens)[:, None, :]          # [B, 1, D]
     if dtype is not None:
         x = x.to(dtype)
     for li, layer in enumerate(model.layers):
@@ -496,15 +586,16 @@ def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
         k = rope_rotate(k, c, sn)
         k_cache, v_cache = cache["k"][li], cache["v"][li]
         for kv, new in ((k_cache, k), (v_cache, v)):
-            flat = kv.view(b * s_cache, -1)
-            flat.index_copy_(0, row, torch.where(
-                dropped, flat.index_select(0, row), new.reshape(b, -1)))
+            if on_mesh:
+                _write_kv_on_mesh(kv, new.reshape(b, -1), length)
+            else:
+                _write_rows(kv, new.reshape(b, -1), row, mine)
         attn = gqa_kernel.gqa_decode(q[:, 0], k_cache, v_cache, attend)
         x = _mlp(cfg, x + torch.matmul(attn.reshape(b, 1, -1), lp["wo"]),
                  lp)
     norm, head = model.final_norm, model.lm_head
     if dtype is not None:
         norm, head = norm.to(dtype), head.to(dtype)
-    logits = torch.matmul(rms_norm(x, norm), head)
+    logits = logits_layout(torch.matmul(rms_norm(x, norm), head))
     length.add_(1)
     return logits[:, 0], cache

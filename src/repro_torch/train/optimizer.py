@@ -29,6 +29,8 @@ from typing import Callable, Dict, Mapping, Optional
 import torch
 
 from repro_torch.device import scalar
+from repro_torch.dist.on_mesh import (is_dtensor, local_part, partial_sum,
+                                      settled)
 
 CHUNK = 1 << 26          # elements a leaf is updated at a time
 
@@ -87,12 +89,19 @@ def init_opt_state(model: torch.nn.Module,
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """√(Σ leaves Σ x²) in float32, a scalar tensor (a chunk of a leaf is
-    squared at a time, so no leaf-sized temporary is made)."""
+    squared at a time, so no leaf-sized temporary is made).  A DTensor
+    leaf is summed over its local shard, a pending sum over the mesh
+    dimensions that shard it, reduced where the sum is first read."""
     total = None
     for leaf in tree.values():
-        for part in leaf.reshape(-1).split(CHUNK):
-            sq = part.float().square().sum()
-            total = sq if total is None else total + sq
+        leaf = settled(leaf)
+        sq = None
+        for part in local_part(leaf).reshape(-1).split(CHUNK):
+            s = part.float().square().sum()
+            sq = s if sq is None else sq + s
+        if is_dtensor(leaf):
+            sq = partial_sum(sq, leaf)
+        total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
@@ -134,14 +143,21 @@ def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     lr = lr_schedule(cfg, state["step"])
     bc1 = 1 - torch.pow(_f32(cfg.b1, dev), stepf)
     bc2 = 1 - torch.pow(_f32(cfg.b2, dev), stepf)
+    scalars = [local_part(x) for x in (scale, lr, bc1, bc2)]
     for name, p in params.items():
-        _update_leaf(cfg, p, grads[name], state["mu"][name],
-                     state["nu"][name], scale, lr, bc1, bc2)
+        g = grads[name]
+        if is_dtensor(p):      # each rank updates its shard
+            g = g.redistribute(p.device_mesh, p.placements)
+        _update_leaf(cfg, local_part(p), local_part(g),
+                     local_part(state["mu"][name]),
+                     local_part(state["nu"][name]), *scalars)
     return {"grad_norm": gn, "lr": lr}
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: Optional[AdamWConfig] = None,
-                    compress_grads: bool = False) -> Callable:
+                    compress_grads: bool = False,
+                    reduce_axis: Optional[str] = None,
+                    mesh=None) -> Callable:
     """``loss_fn(model, batch)`` → scalar; returns ``step(model, opt_state,
     batch)`` → ``(opt_state, metrics)``: the loss and its gradients, then
     (with ``compress_grads``) the gradients through int8 error-feedback
@@ -149,10 +165,14 @@ def make_train_step(loss_fn: Callable, opt_cfg: Optional[AdamWConfig] = None,
     AdamW update, all in place.  ``metrics`` holds ``loss``, ``grad_norm``
     and ``lr`` as tensors on the device: reading them is the host sync.
 
-    The reference's ``reduce_axis`` (a mean over a mesh axis with a
-    compressed payload, ``cross_pod_reduce_compressed``) belongs to the
-    multi-card slice and is not here."""
+    With ``compress_grads``, ``reduce_axis`` names a dimension of ``mesh``
+    over which each rank's gradients are mean-reduced with the compressed
+    payload (``compression.cross_pod_reduce_compressed``), as the
+    reference's step does inside ``shard_map``; each rank's model is its
+    replica, and every rank then takes the same update."""
     opt_cfg = opt_cfg or AdamWConfig()
+    if reduce_axis is not None and mesh is None:
+        raise ValueError(f"reduce_axis={reduce_axis!r} needs the mesh")
     if compress_grads:
         from repro_torch.dist import compression
 
@@ -164,7 +184,11 @@ def make_train_step(loss_fn: Callable, opt_cfg: Optional[AdamWConfig] = None,
                  for n, p in params.items()}
         for p in params.values():
             p.grad = None
-        if compress_grads:
+        if compress_grads and reduce_axis is not None:
+            grads, opt_state["ef"] = \
+                compression.cross_pod_reduce_compressed(
+                    grads, opt_state["ef"], mesh, axis_name=reduce_axis)
+        elif compress_grads:
             q, s, opt_state["ef"] = compression.compress_with_feedback(
                 grads, opt_state["ef"])
             grads = compression.decompress(q, s)

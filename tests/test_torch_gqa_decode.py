@@ -189,20 +189,74 @@ def _ok_args(dtype=torch.float32, b=2, hkv=2, g=5, d=16, s=32):
     ("q not contiguous",
      lambda q, k, v, n: (q.transpose(1, 2).contiguous().transpose(1, 2),
                          k, v, n), ValueError, "contiguous"),
-    ("D not a multiple of 8",
-     lambda q, k, v, n: (q[..., :12].contiguous(), k[..., :12].contiguous(),
-                         v[..., :12].contiguous(), n), ValueError, "D must"),
-    ("D above 256",
-     lambda q, k, v, n: _ok_args(d=264)[:3] + (n,), ValueError, "D must"),
-    ("G above 16",
-     lambda q, k, v, n: (torch.zeros(2, 2, 17, 16), k, v, n), ValueError,
-     "G must"),
+    ("G = 0",
+     lambda q, k, v, n: (q[:, :, :0].contiguous(), k, v, n), ValueError,
+     "at least 1"),
+    ("D = 0",
+     lambda q, k, v, n: (q[..., :0].contiguous(), k[..., :0].contiguous(),
+                         v[..., :0].contiguous(), n), ValueError,
+     "at least 1"),
     ("S = 0",
      lambda q, k, v, n: (q, k[:, :0], v[:, :0], n), ValueError, "S = 0"),
 ])
 def test_wrapper_refuses(what, mutate, exc, match):
     with pytest.raises(exc, match=match):
         gqa_decode(*mutate(*_ok_args()))
+
+
+@pytest.mark.parametrize("what,mutate", [
+    ("D not a multiple of 8",
+     lambda q, k, v, n: (q[..., :12].contiguous(), k[..., :12].contiguous(),
+                         v[..., :12].contiguous(), n)),
+    ("D above 256", lambda q, k, v, n: _ok_args(d=264)[:3] + (n,)),
+    ("G above 16",
+     lambda q, k, v, n: (torch.zeros(2, 2, 17, 16), k, v, n)),
+])
+def test_wrapper_takes_any_g_and_d_on_the_cpu(what, mutate):
+    """Fault (w): the shapes the wrapper refused before take the plain
+    version on the CPU, as the reference takes them; the operator's fake
+    implementation and FLOP formula take them too."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    args = mutate(*_ok_args())
+    out = gqa_decode(*args)
+    assert out.shape == args[0].shape
+    assert torch.equal(out, gqa_decode_ref(*args))
+    with FakeTensorMode(allow_non_fake_inputs=True) as mode:
+        fakes = [mode.from_tensor(x) for x in args]
+        counter = FlopCounterMode(display=False)
+        with counter:
+            got = gqa_decode(*fakes)
+    assert got.shape == args[0].shape
+    b, hkv, g, d = args[0].shape
+    assert counter.get_total_flops() == 4 * b * hkv * g * args[1].shape[1] * d
+
+
+# Fault (w): G above one m16 tile and D off a multiple of 8 or above 256,
+# against the Pallas kernel in interpret mode (which takes any G and D).
+WIDE = [("g17", 2, 2, 17, 64, 300, [300, 129]),
+        ("g24_d128", 2, 2, 24, 128, 256, [256, 0]),
+        ("g40_d64_above_S", 1, 3, 40, 64, 256, [10_000]),
+        ("d12", 2, 2, 5, 12, 260, [260, 3]),
+        ("d36_g24", 2, 1, 24, 36, 300, [7, 300]),
+        ("d100_g17", 1, 2, 17, 100, 257, [257]),
+        ("d320_g40", 2, 1, 40, 320, 130, [130, 64])]
+
+
+@pytest.mark.parametrize("case", WIDE, ids=[c[0] for c in WIDE])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_any_g_and_d_match_pallas(case, dtype):
+    name, b, hkv, g, d, s, lengths = case
+    arrays = _inputs(len(name) * 11 + s, b, hkv, g, d, s)
+    jx, tx = _both(arrays, dtype)
+    tol = DTYPES[dtype][2]
+    plain, wrapped = _port(tx, lengths)
+    assert torch.equal(plain, wrapped) and plain.shape == (b, hkv, g, d)
+    np.testing.assert_allclose(_f32(plain), _f32(_pallas(jx, lengths)),
+                               rtol=tol, atol=tol)
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert not plain[i].any()
 
 
 def test_cpu_path_never_counts_a_launch():
@@ -286,12 +340,16 @@ def emulate_mma(q, k, v, length, sms=H100_SMS, tile=None,
     8-row instance, P_lo in rows 8-15) into two float32 sums added when
     the warps merge at the block's max; at G > 8 (the 16-row instance, two
     products a V fragment) P_hi·V and then P_lo·V into one float32 sum.
-    The combine merges the splits with l > 0 and rounds to bfloat16."""
+    The combine merges the splits with l > 0 and rounds to bfloat16.
+    Above G = 16 the rows go in tiles of 16 on the grid, each the 16-row
+    instance: rows stay independent, and only the splits change (cut for
+    B·Hkv·tiles blocks)."""
     tile = tile or gqa_kernel.TILE
     b, hkv, g, d = q.shape
     s = k.shape[1]
-    n_split, chunk = gqa_kernel.splits(b * hkv, s, sms, gqa_kernel.MMA, tile)
-    assert chunk % tile == 0 and g <= gqa_kernel.MAX_G
+    n_split, chunk = gqa_kernel.splits(b * hkv * gqa_kernel.row_tiles(g), s,
+                                       sms, gqa_kernel.MMA, tile)
+    assert chunk % tile == 0
     one_sum = gqa_kernel.mma_rows(g) == 16
     warps = tile // 16
     scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
@@ -404,7 +462,7 @@ def test_mma_emulation_at_g16_deploy_tolerance(single_bf16):
     assert chip_smoke.deploy_close(got, want) is not single_bf16
 
 
-@pytest.mark.parametrize("g", [9, 16])
+@pytest.mark.parametrize("g", [9, 16, 17, 24, 40])
 def test_mma_emulation_g_above_8_matches_ref_and_pallas(g):
     """The 16-row instance's arithmetic against ``gqa_decode_ref`` and
     the Pallas kernel in interpret mode, at lengths over several splits
@@ -457,7 +515,7 @@ def test_mma_shared_memory_fits_every_setting():
     settings = {(gqa_kernel.TILE, gqa_kernel.STAGES)} | set(ds.VARIANTS)
     for tile, stages in settings:
         for d in range(8, gqa_kernel.MMA_MAX_D + 1, 8):
-            for g in (1, 8, 9, gqa_kernel.MAX_G):
+            for g in (1, 8, 9, gqa_kernel.MMA_ROWS, 40):
                 assert gqa_kernel.mma_smem_bytes(d, tile, stages, g) \
                     <= gqa_kernel.SMEM_LIMIT, (tile, stages, d, g)
     assert gqa_kernel.mma_smem_bytes(128, 64, 3) == 3 * 2 * 64 * 136 * 2 \

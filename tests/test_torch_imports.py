@@ -55,12 +55,18 @@ def test_importing_every_module_loads_no_jax_or_reference():
             "repro_torch.models.nequip", "repro_torch.configs.gnn_family",
             "repro_torch.data.synth", "repro_torch.configs.base",
             "repro_torch.configs.registry",
-            "repro_torch.launch.dryrun"} <= set(mods)
+            "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
+            "repro_torch.dist.sharding", "repro_torch.dist.elastic",
+            "repro_torch.dist.on_mesh"} \
+        <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
             "    __import__(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
+            "import torch.distributed as dist\n"
+            "if dist.is_available() and dist.is_initialized():\n"
+            "    bad.append('a process group')\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

@@ -472,6 +472,27 @@ def test_chip_smoke_moe_serve_on_the_cpu():
     assert row["conditioned"]["arch"] == cfg.name
 
 
+def test_chip_smoke_served_splits_on_an_h100():
+    """The split rule at the serving phases' shapes on an H100's 132 SMs:
+    Qwen3-MoE's longest prompt and 16 new tokens take the cache into
+    gqa_decode's second split of 256 positions; Qwen2.5-14B's 1,024
+    positions are two splits of 512, its served data in the first."""
+    from repro_torch.configs.lm_family import get_config
+    moe3 = chip_smoke.moe3_config()
+    lens = [len(p) for p in chip_smoke.rag_prompts(
+        moe3.vocab, chip_smoke.LM_SLOTS, chip_smoke.MOE3_PROMPT_LENS)]
+    steps = max(lens) + chip_smoke.MOE_MAX_NEW
+    assert chip_smoke.served_splits(
+        "cpu", moe3, chip_smoke.LM_SLOTS, chip_smoke.LM_MAX_LEN, steps,
+        sms=132) == {"splits": 4, "chunk": 256, "holding_data": 2}
+    lm = get_config(chip_smoke.LM_ARCH)
+    assert chip_smoke.served_splits(
+        "cpu", lm, chip_smoke.LM_SLOTS, chip_smoke.LM_MAX_LEN,
+        chip_smoke.LM_PROMPT_LENS[1] + chip_smoke.LM_MAX_NEW,
+        sms=132) == {"splits": 2, "chunk": 512, "holding_data": 1}
+    assert chip_smoke.served_splits("cpu", lm, 8, 1024, 94) is None
+
+
 def test_chip_smoke_moe_serve_qwen3_on_the_cpu():
     """Phase 12c (``moe_serve_qwen3``) at Qwen3-MoE's bfloat16 smoke
     config with 16 query heads on 1 KV head (the full config's G = 16), 4

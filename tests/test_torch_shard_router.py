@@ -372,7 +372,7 @@ def test_chip_smoke_sharded_and_tiered_phases_on_cpu():
                                    n_docs=n_docs, step_queries=8,
                                    profile=False)
     assert out["vs_single"]["queries"] == n_queries
-    assert out["swap_s"] >= 0
+    assert out["swap_s"] >= 0 and out["merge_swap_s"] >= 0
     tiered = chip_smoke.phase_tiered("cpu", n_docs=250, every=50,
                                      n_queries=16)
     assert tiered["runs_served"] == 4 and tiered["hot_segments"] > 0
