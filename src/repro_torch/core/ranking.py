@@ -8,11 +8,14 @@ Annotation conventions (exactly the paper's):
   ⟨<word>, a⟩                        word occurrence (added by append)
 
 The *index* only stores annotations; this module interprets them as BM25
-(Robertson et al. 1994).  Query evaluation offers two host strategies:
+(Robertson et al. 1994).  Query evaluation offers three host strategies:
 
   score_bm25        exhaustive merge-join over tf lists (numpy, float64)
+  score_wand        document-at-a-time WAND with per-term upper bounds
   score_blockmax    Block-Max: per-block maxima prune whole blocks (the
                     block-impact layout also feeds the bm25_blockmax kernel)
+
+plus RM3-style pseudo-relevance feedback built on T(p, q).
 """
 
 from __future__ import annotations
@@ -32,6 +35,12 @@ _WORD_RE = re.compile(r"\w+", re.UNICODE)
 TF_PREFIX = "tf:porter:"
 DOC_FEATURE = ":"
 DL_FEATURE = "dl:"
+
+# Stopwords for PRF expansion only (ranking uses raw idf).
+_STOP = frozenset("""a an and are as at be by for from has have in is it its
+of on or that the to was were will with this which not no but they he she we
+you i his her their our your""".split())
+
 
 def ranking_tokens(text: str) -> List[str]:
     return [w.lower() for w in _WORD_RE.findall(text)]
@@ -161,6 +170,70 @@ def score_bm25(snapshot_or_warren, query: str, k: int = 10,
 
 
 # --------------------------------------------------------------------- #
+# WAND (Broder et al. 2003) over hoppers: document-at-a-time with term
+# upper bounds; generalizes directly because τ/ρ generalize seek().
+# --------------------------------------------------------------------- #
+def score_wand(snapshot_or_warren, query: str, k: int = 10,
+               k1: float = 0.9, b: float = 0.4,
+               stats: Optional[CollectionStats] = None) -> List[Tuple[int, float]]:
+    stats = stats or collection_stats(snapshot_or_warren)
+    if stats.n_docs == 0:
+        return []
+    terms = list(dict.fromkeys(ranking_tokens(query)))
+    lists = _term_lists(snapshot_or_warren, terms)
+    cursors = []
+    for t in terms:
+        lst = lists[t]
+        if len(lst) == 0:
+            continue
+        idf = _bm25_idf(stats.n_docs, len(lst))
+        # max impact: tf -> saturating, bound with dl -> 0 side
+        ub = idf * (k1 + 1.0) * lst.values.max() / (lst.values.max() + k1 * (1.0 - b))
+        di, imp = _impacts(lst, stats, idf, k1, b)
+        cursors.append({"pos": 0, "di": di, "imp": imp, "ub": float(ub)})
+    cursors = [c for c in cursors if len(c["di"])]
+    if not cursors:
+        return []
+    heap: List[Tuple[float, int]] = []   # (score, doc_index) min-heap
+    theta = 0.0
+    evals = 0
+    while True:
+        live = [c for c in cursors if c["pos"] < len(c["di"])]
+        if not live:
+            break
+        live.sort(key=lambda c: c["di"][c["pos"]])
+        # pivot: first term where cumulative UB exceeds theta
+        acc_ub, pivot = 0.0, None
+        for i, c in enumerate(live):
+            acc_ub += c["ub"]
+            if acc_ub > theta or len(heap) < k:
+                pivot = i
+                break
+        if pivot is None:
+            break
+        pivot_doc = int(live[pivot]["di"][live[pivot]["pos"]])
+        if int(live[0]["di"][live[0]["pos"]]) == pivot_doc:
+            score = 0.0
+            for c in live:
+                p = c["pos"]
+                if p < len(c["di"]) and c["di"][p] == pivot_doc:
+                    score += float(c["imp"][p])
+                    c["pos"] = p + 1
+            evals += 1
+            if len(heap) < k:
+                heapq.heappush(heap, (score, pivot_doc))
+            elif score > heap[0][0]:
+                heapq.heapreplace(heap, (score, pivot_doc))
+            if len(heap) == k:
+                theta = heap[0][0]
+        else:
+            for c in live[:pivot]:
+                c["pos"] = int(np.searchsorted(c["di"], pivot_doc))
+    out = sorted(heap, key=lambda x: -x[0])
+    return [(int(stats.doc_starts[d]), s) for s, d in out if s > 0]
+
+
+# --------------------------------------------------------------------- #
 # Block-Max layout: doc space cut into fixed blocks; per-(term, block)
 # maxima enable block skipping (Ding & Suel 2011).  This same layout feeds
 # the bm25_blockmax device kernel (kernels/bm25_blockmax).
@@ -236,3 +309,44 @@ def score_blockmax(bidx: BlockImpactIndex, k: int = 10) -> List[Tuple[int, float
             theta = heap[0][0]
     out = sorted(heap, key=lambda x: -x[0])
     return [(int(bidx.doc_starts[d]), s) for s, d in out if s > 0]
+
+
+# --------------------------------------------------------------------- #
+# RM3-flavoured pseudo-relevance feedback (paper Fig. 7 workload)
+# --------------------------------------------------------------------- #
+def expand_query(snapshot_or_warren, query: str, fb_docs: int = 20,
+                 fb_terms: int = 20, orig_weight: float = 0.6,
+                 stats: Optional[CollectionStats] = None) -> Dict[str, float]:
+    stats = stats or collection_stats(snapshot_or_warren)
+    top = score_bm25(snapshot_or_warren, query, k=fb_docs, stats=stats)
+    counts: Dict[str, float] = {}
+    doc_map = {int(s): i for i, s in enumerate(stats.doc_starts)}
+    for d_lo, _ in top:
+        i = doc_map.get(d_lo)
+        hi = int(stats.doc_ends[i]) if i is not None else d_lo
+        text = snapshot_or_warren.translate(d_lo, hi)
+        if text is None:
+            continue
+        for wrd in ranking_tokens(text):
+            if wrd in _STOP or len(wrd) <= 2 or wrd.isdigit():
+                continue
+            counts[wrd] = counts.get(wrd, 0.0) + 1.0
+    scored = sorted(counts.items(), key=lambda kv: -kv[1])[:fb_terms]
+    total = sum(v for _, v in scored) or 1.0
+    weights: Dict[str, float] = {}
+    for t in ranking_tokens(query):
+        weights[t] = weights.get(t, 0.0) + orig_weight / max(len(ranking_tokens(query)), 1)
+    for t, v in scored:
+        weights[t] = weights.get(t, 0.0) + (1 - orig_weight) * v / total
+    return weights
+
+
+def average_precision(ranked_docs: Sequence[int], relevant: set) -> float:
+    if not relevant:
+        return 0.0
+    hits, s = 0, 0.0
+    for i, d in enumerate(ranked_docs, 1):
+        if d in relevant:
+            hits += 1
+            s += hits / i
+    return s / len(relevant)

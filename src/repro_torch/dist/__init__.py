@@ -13,7 +13,12 @@ and the training side's meshes.
                 placements, and the kernel operators' DTensor rules
   on_mesh       what model code needs to run on DTensors (lookups,
                 pinned layouts, gradients placed), no-ops off a mesh
-  elastic       mesh shrink, repartition, live split/merge and reshard
+  elastic       mesh shrink, repartition, live split/merge and reshard,
+                and the autopilot started over a live warren
+  autopilot     closed-loop control plane: Controller + policies that
+                drive split/merge/demote/re-sync from live signals
+  simharness    deterministic day-in-the-life simulation (SimClock,
+                SimCluster, DriftingWorkload) for tests and benchmarks
 
 Submodules are imported lazily, so pulling in one never drags the whole
 index stack along.
@@ -22,7 +27,8 @@ index stack along.
 import importlib
 
 _SUBMODULES = ("checkpoint", "shard_router", "parallel", "rebalance",
-               "compression", "sharding", "on_mesh", "elastic")
+               "compression", "sharding", "on_mesh", "elastic",
+               "autopilot", "simharness")
 
 _LAZY_NAMES = {
     "ShardedWarren": "shard_router",
@@ -32,6 +38,13 @@ _LAZY_NAMES = {
     "ScatterTimings": "parallel",
     "Rebalancer": "rebalance",
     "RebalanceStats": "rebalance",
+    "Controller": "autopilot",
+    "AutopilotConfig": "autopilot",
+    "Decision": "autopilot",
+    "GroupSignal": "autopilot",
+    "SimClock": "simharness",
+    "SimCluster": "simharness",
+    "DriftingWorkload": "simharness",
 }
 
 __all__ = list(_SUBMODULES) + list(_LAZY_NAMES)

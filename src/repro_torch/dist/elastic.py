@@ -25,8 +25,8 @@ repartition with the same inputs lands every item on the same shard.
 The host logic is the reference's, bit for bit.  ``reshard`` is the
 port's: DTensor's ``redistribute`` on the same mesh; onto another mesh
 (the elastic restart) every leaf gathered whole (``full_tensor``) and
-distributed anew.  The reference's ``autopilot`` (a controller over
-``dist/autopilot.py``) is not here.
+distributed anew.  ``autopilot`` closes the loop over the live path: a
+:class:`repro_torch.dist.autopilot.Controller` on a daemon thread.
 
 A note on ``_impl`` names: as in ``dist/shard_router.py``, each function
 the reference's lock analysis may reach by name is defined under an
@@ -202,3 +202,25 @@ def _merge_shard_groups_impl(warren, dest: int, source: int,
 
 
 merge_shard_groups = _merge_shard_groups_impl   # see the note on _impl
+
+
+def _autopilot_impl(warren, config=None, interval_s: float = 5.0,
+                    decision_log: Optional[str] = None):
+    """Close the loop: start an autopilot controller over a live
+    ShardedWarren and return ``(controller, stop_event)``.
+
+    The controller ticks every ``interval_s`` seconds on a daemon thread,
+    splitting hot groups, demoting and merging cold ones, and re-syncing
+    diverged replicas — the manual `split_shard_group`/`merge_shard_groups`
+    calls above, driven by policy instead of by an operator.  Set the
+    stop event (or drop the warren) to halt it.  See
+    :mod:`repro_torch.dist.autopilot` for the policy knobs."""
+    from repro_torch.dist.autopilot import Controller
+
+    ctl = Controller.for_warren(warren, config=config,
+                                decision_log=decision_log)
+    stop = ctl.spawn(interval_s)
+    return ctl, stop
+
+
+autopilot = _autopilot_impl   # see the note on _impl

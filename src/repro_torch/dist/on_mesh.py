@@ -18,6 +18,10 @@ tensors (one device, every CPU test of the reference's numerics):
   whole batch (:func:`keep_shards`, :func:`split_last`,
   :func:`logits_layout`, :func:`rows_like`), and gradients placed as
   their tensors (:func:`grad_like`);
+* sums whose operands DTensor would place so that one turns from a cut
+  into a pending sum (:func:`add_settled`, and :func:`grad_like` on each
+  use of a tensor whose gradients are added in different layouts, as
+  products with weights not :func:`placed_alike` give them);
 * small work run whole or per row (:func:`replicated_local`,
   :func:`per_row`, :func:`segment_sum`);
 * the one rule for plain tensors that model code makes
@@ -83,6 +87,35 @@ def settled(x: torch.Tensor) -> torch.Tensor:
         return x
     return x.redistribute(x.device_mesh, [Replicate() if p.is_partial()
                                           else p for p in x.placements])
+
+
+def add_settled(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a + b``; for two DTensors, each pending sum (``Partial``) on a mesh
+    dimension that the other operand cuts (``Shard``) is reduced first
+    (replicated there, as :func:`settled` does).  Given a pending sum and
+    a cut, DTensor's add may ask to turn the cut operand into a pending
+    sum, which some versions cannot do ("redistribute from S(d) to P(sum)
+    not supported yet"); where it reduces the sum itself, this is the same
+    all-reduce.  Any other pair is added as it is."""
+    if not (is_dtensor(a) and is_dtensor(b)):
+        return a + b
+
+    def reduced(x, other):
+        want = [Replicate() if p.is_partial() and isinstance(q, Shard)
+                else p for p, q in zip(x.placements, other.placements)]
+        if want == list(x.placements):
+            return x
+        return x.redistribute(x.device_mesh, want)
+
+    return reduced(a, b) + reduced(b, a)
+
+
+def placed_alike(*ws: torch.Tensor) -> bool:
+    """Whether the DTensor weights ``ws`` are all placed the same (any
+    plain tensor counts as alike).  Products of one input with weights
+    placed differently give that input gradients in different layouts."""
+    places = {tuple(w.placements) for w in ws if is_dtensor(w)}
+    return len(places) <= 1
 
 
 def replicated_implicitly():

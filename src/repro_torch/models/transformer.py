@@ -57,10 +57,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.vectorized import stable_topk
-from repro_torch.dist.on_mesh import (grad_like, is_dtensor, keep_shards,
-                                      local_range, logits_layout,
-                                      replicated_local, settled, split_last,
-                                      take_rows)
+from repro_torch.dist.on_mesh import (add_settled, grad_like, is_dtensor,
+                                      keep_shards, local_range, logits_layout,
+                                      placed_alike, replicated_local,
+                                      settled, split_last, take_rows)
 from repro_torch.dist.sharding import placements
 from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
 
@@ -267,9 +267,14 @@ def _qkv(cfg: TransformerConfig, lp: Mapping[str, torch.Tensor],
     [B, S, Hkv, Dh], QK-normed when the config says so, before RoPE."""
     b, s, _ = xn.shape
     hkv, g, hd = cfg.n_kv_heads, cfg.group_size, cfg.head_dim
-    q = torch.matmul(xn, lp["wq"])
-    k = torch.matmul(xn, lp["wk"])
-    v = torch.matmul(xn, lp["wv"])
+    # on DTensors whose q/k/v weights are cut differently (FSDP's cut
+    # lands on another dimension of a wide wq than of a narrow wk) the
+    # products' gradients of xn come back in different layouts: each is
+    # placed as xn is before autograd adds them (see moe_block)
+    own = not placed_alike(lp["wq"], lp["wk"], lp["wv"])
+    q = torch.matmul(grad_like(xn) if own else xn, lp["wq"])
+    k = torch.matmul(grad_like(xn) if own else xn, lp["wk"])
+    v = torch.matmul(grad_like(xn) if own else xn, lp["wv"])
     if cfg.qkv_bias:    # on DTensors: see recsys._mlp_apply
         q, k, v = (settled(q) + lp["bq"], settled(k) + lp["bk"],
                    settled(v) + lp["bv"])
@@ -353,15 +358,20 @@ def moe_block(x: torch.Tensor, lp: Mapping[str, torch.Tensor],
     (qwen2-moe) is gated by a float32 sigmoid."""
     m = cfg.moe
     t, d = x.shape
-    probs = torch.softmax(torch.matmul(x.float(), lp["router"].float()),
-                          dim=-1)
+    # on DTensors each use of x takes its own grad_like: the gradients of
+    # the router, the experts and the shared expert come back placed as x
+    # is before autograd adds them (DTensor's add of a pending sum and a
+    # cut may ask to turn the cut into a pending sum, which some versions
+    # cannot do); a no-op on plain tensors
+    probs = torch.softmax(torch.matmul(grad_like(x).float(),
+                                       lp["router"].float()), dim=-1)
     if is_dtensor(probs):    # integer work on [T, E]: whole on every rank
         top_p, top_e, pos, keep, idx_buf = replicated_local(
             lambda pr: moe_dispatch(pr, m), 5, probs)
     else:
         top_p, top_e, pos, keep, idx_buf = moe_dispatch(probs, m)
     c = idx_buf.shape[1]
-    xe = torch.cat([x, x.new_zeros((1, d))])[idx_buf]        # [E, C, D]
+    xe = torch.cat([grad_like(x), x.new_zeros((1, d))])[idx_buf]  # [E, C, D]
     if cfg.moe_shard == "all":
         xe = _constrain(xe, ("model", "data", None))
     # on DTensors the pending sums of the experts' products are reduced
@@ -377,10 +387,10 @@ def moe_block(x: torch.Tensor, lp: Mapping[str, torch.Tensor],
     w = (top_p * keep).to(ye.dtype)
     y = torch.bmm(w[:, None, :], y_slots)[:, 0]
     if m.n_shared:
-        g = torch.sigmoid(torch.matmul(x.float(),
+        g = torch.sigmoid(torch.matmul(grad_like(x).float(),
                                        lp["s_gate_proj"].float()))
-        y = y + g.to(x.dtype) * swiglu(x, lp["s_gate"], lp["s_up"],
-                                       lp["s_down"])
+        y = add_settled(y, g.to(x.dtype) * swiglu(
+            grad_like(x), lp["s_gate"], lp["s_up"], lp["s_down"]))
     return y.to(x.dtype)
 
 
@@ -403,7 +413,8 @@ def _mlp(cfg: TransformerConfig, x: torch.Tensor,
     if cfg.moe is None:
         return x + swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"])
     b, s, d = xn.shape
-    return x + moe_block(xn.reshape(b * s, d), lp, cfg).reshape(b, s, d)
+    return add_settled(x, moe_block(xn.reshape(b * s, d), lp, cfg
+                                    ).reshape(b, s, d))
 
 
 def _layer(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
@@ -431,7 +442,7 @@ def _layer(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
     # on DTensors the heads' gradient comes back placed as the flat heads
     # are, so the flatten's backward can split it again
     attn = grad_like(attn.reshape(b, s, -1))
-    return _mlp(cfg, x + torch.matmul(attn, lp["wo"]), lp)
+    return _mlp(cfg, add_settled(x, torch.matmul(attn, lp["wo"])), lp)
 
 
 def _layer_remat(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
@@ -591,8 +602,8 @@ def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
             else:
                 _write_rows(kv, new.reshape(b, -1), row, mine)
         attn = gqa_kernel.gqa_decode(q[:, 0], k_cache, v_cache, attend)
-        x = _mlp(cfg, x + torch.matmul(attn.reshape(b, 1, -1), lp["wo"]),
-                 lp)
+        x = _mlp(cfg, add_settled(
+            x, torch.matmul(attn.reshape(b, 1, -1), lp["wo"])), lp)
     norm, head = model.final_norm, model.lm_head
     if dtype is not None:
         norm, head = norm.to(dtype), head.to(dtype)

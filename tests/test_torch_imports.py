@@ -57,7 +57,14 @@ def test_importing_every_module_loads_no_jax_or_reference():
             "repro_torch.configs.registry",
             "repro_torch.launch.dryrun", "repro_torch.launch.mesh",
             "repro_torch.dist.sharding", "repro_torch.dist.elastic",
-            "repro_torch.dist.on_mesh"} \
+            "repro_torch.dist.on_mesh", "repro_torch.obs",
+            "repro_torch.obs.metrics", "repro_torch.obs.registry",
+            "repro_torch.obs.trace", "repro_torch.obs.rotate",
+            "repro_torch.obs.slo", "repro_torch.obs.profile",
+            "repro_torch.obs.witness", "repro_torch.obs.hierarchy",
+            "repro_torch.obs.server", "repro_torch.obs.bench",
+            "repro_torch.dist.autopilot", "repro_torch.dist.simharness",
+            "repro_torch.core.sparse", "repro_torch.core.graph_store"} \
         <= set(mods)
     code = ("import sys\n"
             f"for m in {mods!r}:\n"
