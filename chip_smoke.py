@@ -127,8 +127,9 @@ non-zero:
    memory bound, one profiled window, and the kernel alone at one layer's
    [4, 32768, 8, 128] (K and V drawn anew from the seed; all S and the
    cache's lengths), at long_500k's [1, 524288, 8, 128], at
-   Qwen2-MoE-A2.7B's [4, 32768, 16, 128] (G = 1) and at Qwen3-MoE-235B's
-   [4, 32768, 4, 128] (G = 16), checked against its
+   Qwen2-MoE-A2.7B's [4, 32768, 16, 128] (G = 1), at Qwen3-MoE-235B's
+   [4, 32768, 4, 128] (G = 16) and at Yi-9B's long_500k layer
+   [1, 524288, 4, 128] (G = 8), checked against its
    plain version with a tolerance scaled to the output and timed against
    it, the fma kernel (the design before the mma path),
    ``scaled_dot_product_attention`` and its bound;
@@ -226,13 +227,18 @@ non-zero:
    cursor, reaches step 10, and agrees with an uninterrupted card run; 3
    card steps against 3 host steps (the host's float32-vs-float64 spread, or what an AdamW
    step can move a coordinate);
-19. train_recsys, path B: DLRM-RM2 and two-tower (``loss_chunk`` 4,096)
-   at full width and train_batch 65,536, 3 steps on one repeated batch
-   through ``Trainer`` (the loss falls), embedding_bag's forward and
-   backward launch counts zeroed just before and read just after (1 and
-   3 a step each), step ms, examples/s, peak memory, one more step
-   profiled; each lookup of one more step through both kernels, the
-   backward bit for bit against its sorted model; then the four models at
+19. train_recsys, path B: DLRM-RM2, two-tower (``loss_chunk`` 4,096),
+   SASRec and xDeepFM at full width and train_batch 65,536, each cut to
+   the largest power of two whose dry-run estimate (``run_cell`` on the
+   card's fakes) is at most 70 GB (xDeepFM's is not at 65,536), 3 steps on
+   one repeated batch through ``Trainer`` (the loss falls),
+   embedding_bag's forward and backward launch counts zeroed just before
+   and read just after (1, 3, 3 and 2 a step each), step ms, examples/s,
+   the allocator's peak held to the estimate (5 % or 256 MiB), one more
+   step profiled; each lookup of one more step through both kernels, the
+   backward bit for bit against its sorted model; SASRec's and xDeepFM's
+   lookups timed at their own shapes, forward and backward, in turns with
+   ``F.embedding_bag`` and its autograd backward; then the four models at
    their smoke configs, 3 card steps against 3 host steps;
 20. bag_backward_deploy: the backward kernel at DLRM's train shape
    (65,536 × 26 bags of one over [26 M, 64]) and two-tower's history
@@ -258,17 +264,37 @@ non-zero:
    ``classify`` with 602 features and 41 classes on the subgraph) and
    molecule (``molecule_batch`` of 128 molecules of 30 nodes and 64
    edges, ``energy_and_forces``); ms a call (host clock, synchronised),
-   nodes/s, seeds/s, graphs/s, peak memory;
+   nodes/s, seeds/s, graphs/s, peak memory; it hands its parent graph and
+   sampler on to phase 22a;
+22a. train_families, training for the families that had trained only on
+   the host (slice 12): (a) Qwen2-MoE-A2.7B, Qwen3-MoE-235B-A22B and
+   NequIP's node classification and molecules (the force loss) at their
+   smoke configs, 3 ``Trainer`` steps on the card against 3 on the host
+   from the same weights and batches, phase 18's bound; then
+   ``launch.train.main(["--arch", a, "--steps", "3"])`` on the card for
+   both MoE configs, NequIP, SASRec and xDeepFM (embedding_bag's launches
+   counted); (b) at full width, 3 steps on one repeated batch each, the
+   loss finite and falling, ms a step, the allocator's peak held to the
+   dry run's estimate of the same config and batch shapes: both MoE
+   configs in bfloat16 at one sequence of 4,096 tokens (remat, attention
+   chunks of 1,024), as many layers as the dry run fits under 70 GB
+   (tokens/s, the model FLOPs' share of the bf16 peak, the dispatch's
+   drop and overwrite shares), and NequIP's minibatch_lg (1,024 seeds at
+   fanout 15-10 sampled from phase 22's parent graph: host sampling and
+   card step apart), molecule (128 molecules, the force loss: a double
+   backward through ``index_add`` on the card) and full_graph_sm (2,708
+   nodes, 10,556 edges, 1,433 features);
 23. dryrun, the registry's one-card dry run: ``launch.dryrun.run_cell``
    on the card's fakes (no memory, no data; the kernels' fake
-   implementations) for InternLM2-1.8B's long_500k (a 524,288-position KV
-   cache), DLRM-RM2's serve_p99 and NequIP's molecule (a train step,
+   implementations) for InternLM2-1.8B's and Yi-9B's long_500k (a
+   524,288-position KV cache; 51.5 GB for Yi-9B beside its 17.7 GB of
+   weights), DLRM-RM2's serve_p99 and NequIP's molecule (a train step,
    forces included), then each step for real at full width (weights and
    inputs from the seed, the cache at length S − 1): the estimated peak
    within 5 % or 256 MiB of the allocator's, the FLOP counts equal, and
    for long_500k the estimate without the KV cache refused; gqa_decode's
    and embedding_bag's launch counts zeroed just before each real step
-   and read just after (24 and 1);
+   and read just after (24, 48 and 1);
 24. dispatch: the host µs a call of gqa_decode and embedding_bag through
    their operators and through their eager bodies, in turns (op, body,
    body, op): what the dispatcher adds to a call;
@@ -479,25 +505,36 @@ def device_busy(fn) -> dict:
             "top": [[name[:60], ms] for name, ms in top]}
 
 
-def kernel_device_ms(fn, kernel_name: str, n: int = TIMED_LAUNCHES) -> float:
-    """Mean device time of the CUDA kernel ``kernel_name`` per call of
-    ``fn`` over ``n`` calls, from the profiler's device events: the
-    kernel's own time, without the host's launch path around it.  The
-    profiler may drop events, so the mean is over the launches it kept (at
-    least half; a window with fewer runs again, up to PROFILE_TRIES
-    times)."""
+def kernel_device_ms(fn, kernel_name: str, n: int = TIMED_LAUNCHES):
+    """(ms, kept): the mean device time of the CUDA kernel ``kernel_name``
+    per call of ``fn``, from the profiler's device events over windows of
+    ``n`` calls: the kernel's own time, without the host's launch path
+    around it; ``kept`` {"windows", "launches"} says what the mean is over.
+    The profiler may drop events (a window of DLRM's bags kept 13 of 30
+    three times running), so the mean is over the launches it kept: half a
+    window's, or, where a window keeps fewer, the launches kept by up to
+    PROFILE_TRIES windows together once they number ``n`` (then "windows"
+    is more than 1)."""
     import torch
     fn()
     torch.cuda.synchronize()
+    kept = []
     for attempt in range(PROFILE_TRIES):
         events, _ = device_events(lambda: [fn() for _ in range(n)])
         times = [ms for name, ms in events if kernel_name in name]
-        if n // 2 <= len(times) <= n:
-            return float(np.mean(times))
+        check(len(times) <= n, f"profiler saw {len(times)} launches of "
+                               f"{kernel_name} in a window of {n}")
+        if len(times) >= n // 2:
+            return float(np.mean(times)), {"windows": 1,
+                                           "launches": len(times)}
+        kept += times
+        if len(kept) >= n:
+            return float(np.mean(kept)), {"windows": attempt + 1,
+                                          "launches": len(kept)}
         emit("profiler_dropped", kernel=kernel_name, seen=len(times),
-             launched=n, attempt=attempt + 1)
-    raise AssertionError(f"profiler saw {len(times)} launches of "
-                         f"{kernel_name}, expected {n}")
+             launched=n, kept=len(kept), attempt=attempt + 1)
+    raise AssertionError(f"profiler kept {len(kept)} launches of "
+                         f"{kernel_name} in {PROFILE_TRIES} windows of {n}")
 
 
 def kernels_device_ms(fn, prefix: str, per_call: dict,
@@ -868,6 +905,9 @@ def phase_main_path(dev, bw, flops, n_docs=N_DOCS, n_queries=N_QUERIES,
     imp, bmax = max(impacts_seen, key=lambda p: p[0].shape[0])
     theta = blockmax_threshold(imp, bmax, 10)
     kept = int((ref.term_sum(bmax) >= theta).sum())
+    sweep_dev, sweep_kept = kernel_device_ms(
+        lambda: blockmax_scores(imp, bmax, theta), "bm25_blockmax")
+    lib_dev, lib_kept = kernel_device_ms(lambda: imp.sum(0), "reduce_kernel")
     emit("kernel_real_index", queries=n_oracle, agree=kernel_ok,
          launches=launches, shapes=sorted({tuple(i.shape)
                                            for i, _ in impacts_seen}),
@@ -875,13 +915,13 @@ def phase_main_path(dev, bw, flops, n_docs=N_DOCS, n_queries=N_QUERIES,
          widest_shape=list(imp.shape),
          widest_call_ms=time_cuda(
              lambda: blockmax_scores(imp, bmax, theta)),
-         widest_kernel_device_ms=kernel_device_ms(
-             lambda: blockmax_scores(imp, bmax, theta), "bm25_blockmax"),
+         widest_kernel_device_ms=sweep_dev,
+         widest_kernel_device_kept=sweep_kept,
          widest_plain_ms=time_cuda(
              lambda: ref.blockmax_scores(imp, bmax, theta)),
          widest_library_call_ms=time_cuda(lambda: imp.sum(0)),
-         widest_library_device_ms=kernel_device_ms(lambda: imp.sum(0),
-                                                   "reduce_kernel"),
+         widest_library_device_ms=lib_dev,
+         widest_library_device_kept=lib_kept,
          widest_bound_ms=sweep_bound(*imp.shape, kept, bw, flops)[0])
     return warren, launches, worst, queries, dev_res
 
@@ -963,7 +1003,8 @@ def phase_deployment(dev, bw, flops):
         calls = {"kernel": lambda: blockmax_scores(impacts, bmax, theta),
                  "library": lambda: impacts.sum(0)}
         ms, turns = time_in_turns(calls, flush=flush.zero_)
-        device_ms = kernel_device_ms(calls["kernel"], "bm25_blockmax_kernel")
+        device_ms, device_kept = kernel_device_ms(calls["kernel"],
+                                                  "bm25_blockmax_kernel")
         plain_ms = time_cuda(
             lambda: ref.blockmax_scores(impacts, bmax, theta),
             flush=flush.zero_)
@@ -974,7 +1015,8 @@ def phase_deployment(dev, bw, flops):
                        blocks_kept=kept, kernel_ms=ms["kernel"],
                        library_ms=ms["library"], turns_ms=turns,
                        kernel_over_library=ms["kernel"] / ms["library"],
-                       kernel_device_ms=device_ms, plain_ms=plain_ms,
+                       kernel_device_ms=device_ms,
+                       kernel_device_kept=device_kept, plain_ms=plain_ms,
                        library_call="impacts.sum(0) (no pruning)",
                        bound_ms=bound_ms, bound_by=bound_by,
                        share_of_bound=bound_ms / ms["kernel"],
@@ -3159,9 +3201,10 @@ def time_decode_kernel(name, q, k, v, length, bw, flops, flush) -> dict:
     ms, turns = time_in_turns(calls, flush=flush.zero_)
     kernel_ms, fma_ms, library_ms = (ms[key] for key in calls)
     # the kernel's two passes alone, device time (the profiler sees them)
-    passes = {name: kernel_device_ms(calls["kernel"], f"gqa_{name}_kernel")
-              for name in (f"{gqa_kernel.path(q.dtype, d)}_partial",
-                           "combine")}
+    passes, kept = {}, {}
+    for name in (f"{gqa_kernel.path(q.dtype, d)}_partial", "combine"):
+        passes[name], kept[name] = kernel_device_ms(calls["kernel"],
+                                                    f"gqa_{name}_kernel")
     # the dispatcher's own choice: on an H100 the profiler records no
     # device activity for this call
     library_backend = SDPBackend(torch._fused_sdp_choice(
@@ -3173,7 +3216,7 @@ def time_decode_kernel(name, q, k, v, length, bw, flops, flush) -> dict:
                 path=gqa_kernel.path(q.dtype, d), kernel_ms=kernel_ms,
                 plain_ms=plain_ms, fma_ms=fma_ms,
                 library_ms=library_ms, turns_ms=turns,
-                device_ms=passes,
+                device_ms=passes, device_kept=kept,
                 library_max_abs_diff=lib_err,
                 kernel_over_library=kernel_ms / library_ms,
                 fma_over_library=fma_ms / library_ms,
@@ -3279,6 +3322,17 @@ def phase_decode_deploy(dev, bw, flops, cfg=None, b: int = DEPLOY_B,
     rows["500k"] = time_decode_kernel("500k", q, kv[0], kv[1], full, bw,
                                       flops, flush)
     emit("decode_deploy_kernel", case="500k", **rows["500k"])
+    del kv, q
+    # Yi-9B's long_500k layer: Hkv = 4, G = 8 (phase dryrun decodes it)
+    yi = get_config(YI_ARCH)
+    kv = [torch.empty((1, s_long, yi.n_kv_heads, yi.head_dim), dtype=dt,
+                      device=dev).normal_(generator=gen) for _ in range(2)]
+    q = torch.randn((1, yi.n_kv_heads, yi.group_size, yi.head_dim),
+                    generator=gen, device=dev, dtype=torch.float32).to(dt)
+    rows["500k_g8"] = time_decode_kernel("500k G = 8", q, kv[0], kv[1], full,
+                                         bw, flops, flush)
+    emit("decode_deploy_kernel", case="500k_g8", arch=yi.name,
+         **rows["500k_g8"])
     del kv, q
     # the MoE configs' layers at the 32k cache: Qwen2-MoE-A2.7B's Hkv = 16,
     # G = 1, and Qwen3-MoE-235B's Hkv = 4, G = 16 (the mma kernel's 16-row
@@ -3555,6 +3609,7 @@ def phase_moe_small(dev) -> float:
 # --------------------------------------------------------------------- #
 MOE_ARCH = "qwen2-moe-a2.7b"
 MOE3_ARCH = "qwen3-moe-235b-a22b"
+YI_ARCH = "yi-9b"               # decoded only at long_500k (phases 12, 23)
 # Qwen3-MoE-235B-A22B at full width (G = 64 / 4 = 16), cut in depth by the
 # card's memory: its 94 layers are about 470 GB in bfloat16; 8 layers are
 # 21.2 B parameters, 42.3 GB, which leaves room for the fp8 rounding in
@@ -4187,10 +4242,45 @@ def bag_plan(table, ids) -> dict:
                        sm_count(table.device))._asdict()
 
 
-def phase_bag_deploy(dev, bw, flops, bulk: int = BULK) -> dict:
-    import torch
+def bag_forward_row(what: str, table, ids, w, library, bw: float,
+                    flops: float, flush) -> dict:
+    """embedding_bag on the card at (table, ids, w): bit for bit against
+    its plain version and within float rounding of ``library`` (the one
+    PyTorch call of the same function), then timed in turns (A B B A) with
+    it, the kernel's device time and its plain version's time beside its
+    bound (:func:`bag_bound`); ``flush`` evicts the L2 before each run."""
     from repro_torch.kernels.embedding_bag import (embedding_bag,
                                                    embedding_bag_padded_ref)
+    got = embedding_bag(table, ids, w)
+    check(same_bits(got, embedding_bag_padded_ref(table, ids, w)),
+          f"{what}: differs from the plain version")
+    lib_err = float((library().reshape(got.shape) - got).abs().max())
+    del got
+    calls = {"kernel": lambda: embedding_bag(table, ids, w),
+             "library": library}
+    ms, turns = time_in_turns(calls, flush=flush)
+    device_ms, device_kept = kernel_device_ms(calls["kernel"],
+                                              "embedding_bag")
+    plain_ms = time_cuda(lambda: embedding_bag_padded_ref(table, ids, w),
+                         flush=flush)
+    d, elt = table.shape[1], table.element_size()
+    bound_ms, bound_by, nbytes, distinct = bag_bound(ids, d, elt, bw, flops)
+    refs_ms = bag_bound(ids, d, elt, bw, flops, every_reference=True)[0]
+    kernel_ms = ms["kernel"]
+    return dict(
+        card=nvidia_smi(), table=list(table.shape), shape=list(ids.shape),
+        distinct_rows=distinct, max_abs_err=0.0, kernel_ms=kernel_ms,
+        library_ms=ms["library"], turns_ms=turns,
+        kernel_over_library=kernel_ms / ms["library"],
+        kernel_device_ms=device_ms, kernel_device_kept=device_kept,
+        plain_ms=plain_ms, library_max_abs_diff=lib_err, bound_ms=bound_ms,
+        bound_by=bound_by, bytes=nbytes, share_of_bound=bound_ms / kernel_ms,
+        bound_refs_ms=refs_ms, share_of_refs_bound=refs_ms / kernel_ms,
+        plan=bag_plan(table, ids))
+
+
+def phase_bag_deploy(dev, bw, flops, bulk: int = BULK) -> dict:
+    import torch
     t0 = time.perf_counter()
     cases = bag_deploy_cases(dev, bulk)
     torch.cuda.synchronize()
@@ -4198,37 +4288,11 @@ def phase_bag_deploy(dev, bw, flops, bulk: int = BULK) -> dict:
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = {}
     for case, (table, ids, w, library) in cases.items():
-        got = embedding_bag(table, ids, w)
-        check(same_bits(got, embedding_bag_padded_ref(table, ids, w)),
-              f"bag_deploy {case}: differs from the plain version")
-        lib = library()
-        lib_err = float((lib.reshape(got.shape) - got).abs().max())
-        del got, lib
-        # the kernel and the one library call in turns (A B B A)
-        calls = {"kernel": lambda: embedding_bag(table, ids, w),
-                 "library": library}
-        ms, turns = time_in_turns(calls, flush=flush.zero_)
-        device_ms = kernel_device_ms(calls["kernel"], "embedding_bag")
-        plain_ms = time_cuda(lambda: embedding_bag_padded_ref(table, ids, w),
-                             flush=flush.zero_)
-        d, elt = table.shape[1], table.element_size()
-        bound_ms, bound_by, nbytes, distinct = bag_bound(ids, d, elt, bw,
-                                                         flops)
-        refs_ms = bag_bound(ids, d, elt, bw, flops, every_reference=True)[0]
-        kernel_ms = ms["kernel"]
-        rows[case] = dict(
-            card=nvidia_smi(), table=list(table.shape), shape=list(ids.shape),
-            distinct_rows=distinct, max_abs_err=0.0, kernel_ms=kernel_ms,
-            library_ms=ms["library"], turns_ms=turns,
-            kernel_over_library=kernel_ms / ms["library"],
-            kernel_device_ms=device_ms, plain_ms=plain_ms,
-            library_call=("F.embedding" if case == "dlrm" else
-                          "F.embedding_bag(mode='sum', per_sample_weights)"),
-            library_max_abs_diff=lib_err, bound_ms=bound_ms,
-            bound_by=bound_by, bytes=nbytes,
-            share_of_bound=bound_ms / kernel_ms, bound_refs_ms=refs_ms,
-            share_of_refs_bound=refs_ms / kernel_ms,
-            plan=bag_plan(table, ids))
+        rows[case] = bag_forward_row(f"bag_deploy {case}", table, ids, w,
+                                     library, bw, flops, flush.zero_)
+        rows[case]["library_call"] = (
+            "F.embedding" if case == "dlrm" else
+            "F.embedding_bag(mode='sum', per_sample_weights)")
         emit("bag_deploy", case=case, setup_s=setup_s, **rows[case])
     del cases, flush
     gc.collect()
@@ -4435,9 +4499,10 @@ BF16_PEAK = 989e12           # H100 SXM dense bf16 (data sheet)
 
 def lm_train_flops(cfg, tokens: int, seq: int) -> float:
     """Model FLOPs of one training step (forward and backward, no
-    recompute): 6 · params · tokens, plus causal attention's
+    recompute): 6 · active params · tokens (every parameter for a dense
+    model; an MoE's top-k experts), plus causal attention's
     6 · layers · heads · head_dim · seq / 2 · 2 a token."""
-    return 6.0 * cfg.param_count() * tokens + \
+    return 6.0 * cfg.active_param_count() * tokens + \
         6.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * seq * tokens
 
 
@@ -4603,7 +4668,7 @@ def small_lm_trainer(dev, ckpt_dir, steps=TRAIN_SMALL_STEPS, lr=1e-3,
 
 
 def params_close(got: dict, ref32: dict, ref64: dict, lr: float,
-                 steps: int) -> dict:
+                 steps: int, what: str = "parameter") -> dict:
     """Parameters after ``steps`` AdamW steps against a float32 run and its
     float64 twin: the mean |Δ| of each leaf within TRAIN_RATIO × the
     float32 run's mean distance from float64 plus one ulp, and each
@@ -4619,21 +4684,29 @@ def params_close(got: dict, ref32: dict, ref64: dict, lr: float,
         ok = (float(d.mean()) <= TRAIN_RATIO * float(spread.mean()) + ulp
               and float(d.max()) <= max(TRAIN_RATIO * float(spread.max())
                                         + ulp, flip))
-        check(ok, f"parameter {n}: mean |Δ| {float(d.mean())}, max "
+        check(ok, f"{what} {n}: mean |Δ| {float(d.mean())}, max "
                   f"{float(d.max())}; spread mean {float(spread.mean())}, "
                   f"max {float(spread.max())}")
         worst[n] = float(d.max())
     return {"max_abs_err": max(worst.values()), "flip_bound": flip}
 
 
+def float64_batch(batch: dict) -> dict:
+    """``batch`` with its float32 arrays widened to float64."""
+    return {k: v.astype(np.float64) if isinstance(v, np.ndarray)
+            and v.dtype == np.float32 else v for k, v in batch.items()}
+
+
 def host_runs(make):
-    """The same training on the CPU in float32 and with the model widened to
-    float64 (the optimizer stays float32): {name: tensor} each."""
+    """The same training on the CPU in float32 and with the model and its
+    batches' float32 arrays widened to float64 (the optimizer stays
+    float32): {name: tensor} each."""
     out = []
     for wide in (False, True):
         tr = make("cpu")
         if wide:
             tr.model.double()
+            tr.data_iter = map(float64_batch, tr.data_iter)
         tr.train()
         out.append({n: p.detach().clone()
                     for n, p in tr.model.named_parameters()})
@@ -4702,7 +4775,7 @@ def phase_train_small(dev) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# phase 19: recsys training at DLRM-RM2 and two-tower width
+# phase 19: recsys training at the four models' width
 # --------------------------------------------------------------------- #
 RECSYS_TRAIN_STEPS = 3
 TWOTOWER_LOSS_CHUNK = 4096
@@ -4711,18 +4784,25 @@ TRAIN_LAUNCHES = {"dlrm-rm2": 1, "xdeepfm": 2, "two-tower-retrieval": 3,
                   "sasrec": 3}
 
 
-def recsys_trainer(name, cfg, model, batch, steps, lr=1e-3):
-    """A Trainer over ``steps`` copies of one batch (the loss on a repeated
-    batch must fall)."""
-    from repro_torch.configs.recsys_family import loss_fn
+def batches_trainer(loss_fn, model, batches: list, lr=1e-3):
+    """A Trainer of ``model`` over ``batches``, one a step, AdamW at ``lr``
+    with no warm-up, every step's loss logged, no checkpoint."""
     from repro_torch.train.optimizer import AdamWConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
+    steps = len(batches)
     tc = TrainerConfig(total_steps=steps, ckpt_dir=None, log_every=1,
                        ckpt_every=steps + 1,
                        opt=AdamWConfig(lr=lr, warmup_steps=0,
                                        total_steps=100))
-    return Trainer(lambda m, b: loss_fn(name, m, b), model, tc,
-                   iter([batch] * steps))
+    return Trainer(loss_fn, model, tc, iter(batches))
+
+
+def recsys_trainer(name, cfg, model, batch, steps, lr=1e-3):
+    """A Trainer over ``steps`` copies of one batch (the loss on a repeated
+    batch must fall)."""
+    from repro_torch.configs.recsys_family import loss_fn
+    return batches_trainer(lambda m, b: loss_fn(name, m, b), model,
+                           [batch] * steps, lr)
 
 
 def step_lookups(name, model, batch) -> list:
@@ -4788,45 +4868,96 @@ def check_lookups(name, model, batch) -> list:
     return rows
 
 
+def time_lookups(name, model, batch, bw: float, flops: float) -> list:
+    """One training step's lookups (:func:`step_lookups`), the first of
+    each table and ids shape (SASRec's three share one), on the card:
+    the forward kernel as phase 15 times it against ``F.embedding_bag``
+    (:func:`bag_forward_row`) and the backward kernel as phase 20 times
+    it against autograd's backward (:func:`bag_backward_row`)."""
+    import torch
+    import torch.nn.functional as F
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=model.device)
+    rows, shapes = [], set()
+    for k, (t, i, w, g) in enumerate(step_lookups(name, model, batch)):
+        if (t.shape, i.shape) in shapes:
+            continue
+        shapes.add((t.shape, i.shape))
+        i64 = i.long()
+        what = f"{name} lookup {k}"
+        rows.append({
+            "table": list(t.shape), "shape": list(i.shape),
+            "forward": bag_forward_row(
+                what, t, i, w, lambda: F.embedding_bag(
+                    i64, t, mode="sum", per_sample_weights=w),
+                bw, flops, flush.zero_),
+            "backward": bag_backward_row(what, g, i, w, t.shape[0], bw,
+                                         flops, flush.zero_),
+            "library_call": "F.embedding_bag(mode='sum', per_sample_weights)"
+                            " and torch.autograd.grad of it (dense)"})
+    del flush
+    torch.cuda.empty_cache()
+    return rows
+
+
+RECSYS_TRAIN_ARCHS = ("dlrm-rm2", "two-tower-retrieval", "sasrec", "xdeepfm")
+TIMED_TRAIN_ARCHS = ("sasrec", "xdeepfm")     # lookups timed at train shape
+# the most a full-width run's dry-run estimate may reach on an 80 GB card:
+# launch.dryrun's ``fits`` leaves out the CUDA contexts (this process's and
+# phase dist's subprocess's) and the allocator's block slack
+FIT_LIMIT = 70e9
+# train_batch cut to the largest power of two estimated at most FIT_LIMIT
+# (xDeepFM's 65,536 at 88.3 GB, 32,768 at 44.5 GB; PERF.md §4); the
+# others run it uncut
+RECSYS_TRAIN_BATCH = {"xdeepfm": 32_768}
+
+
 def phase_train_recsys(dev, smoke: bool = False, batch: int = None,
-                       steps: int = RECSYS_TRAIN_STEPS) -> dict:
-    """DLRM-RM2 and two-tower at full width (``smoke``: their smoke
-    configs) at train_batch, a few steps on one repeated batch through
-    ``Trainer``, with every lookup's forward and backward kernel counted;
-    then all four models at their smoke configs, 3 card steps against 3
-    host steps."""
+                       steps: int = RECSYS_TRAIN_STEPS, bw: float = None,
+                       flops: float = None) -> dict:
+    """DLRM-RM2, two-tower, SASRec and xDeepFM at full width (``smoke``:
+    their smoke configs) at train_batch (``batch``), cut to
+    RECSYS_TRAIN_BATCH where it gives less, the dry run's estimate held to
+    at most FIT_LIMIT, a few steps on one repeated batch through
+    ``Trainer``, with every lookup's forward and backward kernel counted
+    and the allocator's peak held to the estimate; on the card, given
+    ``bw`` and ``flops``, SASRec's and xDeepFM's lookups timed at their
+    training shapes (:func:`time_lookups`); then all four models at their
+    smoke configs, 3 card steps against 3 host steps."""
     import torch
     from repro_torch.configs.recsys_family import (BATCHES, get_config,
                                                    smoke_batch, train_batch)
     from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.launch.dryrun import batch_specs
     from repro_torch.models.recsys import init_params
     cuda = torch.device(dev).type == "cuda"
     batch = batch or BATCHES["train_batch"]
     out = {}
-    for name in ("dlrm-rm2", "two-tower-retrieval"):
+    for name in RECSYS_TRAIN_ARCHS:
+        t_arch = time.perf_counter()
         cfg = get_config(name, smoke=smoke)
         if name == "two-tower-retrieval":
             cfg = dataclasses.replace(cfg, loss_chunk=min(
                 TWOTOWER_LOSS_CHUNK, batch))
-        if cuda:
-            torch.cuda.reset_peak_memory_stats()
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(SEED)
-        t0 = time.perf_counter()
-        model = init_params(cfg, gen, dev)
-        _sync(dev)
-        init_s = time.perf_counter() - t0
-        b = train_batch(name, cfg, batch, seed=SEED)
-        trainer = recsys_trainer(name, cfg, model, b, steps)
-        stamps = []
-        trainer.step_fn = timed_step_fn(trainer.step_fn, dev, stamps)
-        _sync(dev)
-        bag_kernel.launches = bag_kernel.backward_launches = 0   # path
-        t0 = time.perf_counter()
-        res = trainer.train()
-        _sync(dev)
-        fwd, bwd = bag_kernel.launches, bag_kernel.backward_launches  # ends
-        per = TRAIN_LAUNCHES[name]
+        n = min(batch, RECSYS_TRAIN_BATCH.get(name, batch))
+        b = train_batch(name, cfg, n, seed=SEED)
+        est = dry_estimate(name, "train_batch", dev, cfg, batch_specs(b))
+        with allocated_peak(dev) as peak:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(SEED)
+            t0 = time.perf_counter()
+            model = init_params(cfg, gen, dev)
+            _sync(dev)
+            init_s = time.perf_counter() - t0
+            trainer = recsys_trainer(name, cfg, model, b, steps)
+            stamps = []
+            trainer.step_fn = timed_step_fn(trainer.step_fn, dev, stamps)
+            _sync(dev)
+            bag_kernel.launches = bag_kernel.backward_launches = 0  # path
+            t0 = time.perf_counter()
+            res = trainer.train()
+            _sync(dev)
+            fwd, bwd = bag_kernel.launches, bag_kernel.backward_launches
+        per = TRAIN_LAUNCHES[name]                                  # ends
         check(fwd == bwd == (per * steps if cuda else 0),
               f"{name}: {fwd} forward and {bwd} backward launches in "
               f"{steps} steps, expected {per * steps} each")
@@ -4837,15 +4968,16 @@ def phase_train_recsys(dev, smoke: bool = False, batch: int = None,
         step_ms = 1e3 * np.diff([t0] + stamps)
         steady = float(np.median(step_ms[1:]))
         row = {"card": nvidia_smi() if cuda else "cpu", "arch": cfg.name,
-               "batch": batch, "steps": steps, "init_s": init_s,
+               "batch": n, "steps": steps, "init_s": init_s,
                "table_gb": sum(p.numel() * p.element_size()
-                               for n, p in model.named_parameters()
-                               if n.split(".")[0] in RECSYS_VOCAB) / 1e9,
+                               for n_, p in model.named_parameters()
+                               if n_.split(".")[0] in RECSYS_VOCAB) / 1e9,
                "step_ms": step_ms.tolist(), "steady_step_ms": steady,
-               "examples_per_s": 1e3 * batch / steady, "losses": losses,
+               "examples_per_s": 1e3 * n / steady, "losses": losses,
                "launches": fwd, "backward_launches": bwd,
                "launches_per_step": fwd / steps,
-               "backward_launches_per_step": bwd / steps}
+               "backward_launches_per_step": bwd / steps,
+               **estimate_row(est, peak["bytes"], f"{name} at {n}")}
         if name == "two-tower-retrieval":
             row["loss_chunk"] = cfg.loss_chunk
         if cuda:
@@ -4866,6 +4998,9 @@ def phase_train_recsys(dev, smoke: bool = False, batch: int = None,
         row["lookups"] = check_lookups(name, model, b)
         check(len(row["lookups"]) == TRAIN_LAUNCHES[name],
               f"{name}: {len(row['lookups'])} lookups a step")
+        if cuda and bw and name in TIMED_TRAIN_ARCHS:
+            row["kernel_times"] = time_lookups(name, model, b, bw, flops)
+        row["seconds"] = time.perf_counter() - t_arch
         out[name] = row
         emit("train_recsys", **row)
         del model
@@ -5002,109 +5137,126 @@ def backward_split(fn, g, ids, v) -> dict:
             "kernels_ms": {k: ms[k] for k in per_call}}
 
 
-def phase_bag_backward_deploy(dev, bw, flops, batch: int = None,
-                              smoke: bool = False) -> dict:
+def bag_backward_held(what: str, g, ids, w, v) -> tuple:
+    """(|Δ|, tolerance): embedding_bag's backward on the card, two calls
+    equal and bit for bit its sorted model, then within
+    :func:`bag_backward_bound` of the item-order plain version."""
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag_backward, embedding_bag_backward_ref,
+        embedding_bag_backward_sorted_ref)
+    got = embedding_bag_backward(g, ids, w, v)
+    check(same_bits(got, embedding_bag_backward(g, ids, w, v)),
+          f"{what}: two calls differ")
+    check(same_bits(got, embedding_bag_backward_sorted_ref(g, ids, w, v)),
+          f"{what}: the kernel differs from its sorted model")
+    want = embedding_bag_backward_ref(g, ids, w, v)
+    err, tol, ok = bag_backward_close(got, want,
+                                      bag_backward_bound(g, ids, w, v))
+    check(ok, f"{what}: |Δ| {err} beyond {tol}")
+    return err, tol
+
+
+def bag_backward_time_bound(g, ids, w, bw: float, flops: float) -> tuple:
+    """(bound_ms, bound_by, bytes, distinct rows) of the backward: its
+    bytes (:func:`bag_backward_bytes`) over the memory rate, or its
+    2·B·L·D float32 operations over the float32 rate."""
+    nbytes, distinct = bag_backward_bytes(g, ids, w)
+    by_bytes = 1e3 * nbytes / bw
+    by_ops = 1e3 * 2 * ids.numel() * g.shape[1] / flops
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes,
+            distinct)
+
+
+def bag_backward_row(what: str, g, ids, w, v: int, bw: float, flops: float,
+                     flush, uniform=None) -> dict:
+    """embedding_bag's backward on the card at (grad_out, ids, weights,
+    num_rows): held (:func:`bag_backward_held`), timed in turns (A B B A)
+    with autograd's backward of ``F.embedding_bag`` (dense), its device
+    time split by part, the plain version's time, ``torch.sort`` of the
+    kept rows as the sort's yardstick, beside its bound; with ``uniform``
+    ids of the same shape, those too, timed in the same turns."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.embedding_bag import (
-        PIECE, embedding_bag_backward, embedding_bag_backward_ref,
-        embedding_bag_backward_sorted_ref)
+        PIECE, embedding_bag_backward, embedding_bag_backward_ref)
+    err, tol = bag_backward_held(what, g, ids, w, v)
+    table = torch.zeros((v, g.shape[1]), device=g.device, requires_grad=True)
+    out = F.embedding_bag(ids.long(), table, mode="sum",
+                          per_sample_weights=w)
+
+    def library():
+        return torch.autograd.grad(out, table, g, retain_graph=True)[0]
+    lib_err = float((library() - embedding_bag_backward(
+        g, ids, w, v)).abs().max())
+    calls = {"kernel": lambda: embedding_bag_backward(g, ids, w, v),
+             "library": library}
+    if uniform is not None:
+        calls["kernel_uniform_ids"] = lambda: embedding_bag_backward(
+            g, uniform, w, v)
+    ms, turns = time_in_turns(calls, flush=flush)
+    del table, out
+    split = backward_split(calls["kernel"], g, ids, v)
+    plain_ms = time_cuda(lambda: embedding_bag_backward_ref(g, ids, w, v),
+                         flush=flush)
+    # torch.sort(stable=True) of the kept items' rows, every device
+    # activity of the call
+    keys = bag_backward_kept(g, ids, w, v).to(torch.int32)
+    sort_ms = all_device_ms(lambda: torch.sort(keys, stable=True))
+    del keys
+    bound_ms, bound_by, nbytes, distinct = bag_backward_time_bound(
+        g, ids, w, bw, flops)
+    row = dict(
+        card=nvidia_smi(), table=[v, g.shape[1]],
+        shape=list(ids.shape), distinct_rows=distinct, c=PIECE,
+        **bag_backward_stats(g, ids, w, v),
+        max_abs_err=err, tolerance=tol, sorted_model_bits=True,
+        ms=ms["kernel"], kernel_ms=ms["kernel"],
+        kernel_device_ms=split["device_ms"],
+        parts_ms=split["parts_ms"], kernels_ms=split["kernels_ms"],
+        sort_passes=split["passes"], sort_ms=split["parts_ms"]["sort"],
+        library_sort_ms=sort_ms, library_ms=ms["library"], turns_ms=turns,
+        kernel_over_library=ms["kernel"] / ms["library"],
+        library_call="torch.autograd.grad of F.embedding_bag(mode='sum', "
+                     "per_sample_weights) (dense)",
+        library_sort="torch.sort(stable=True) of the kept items' int32 "
+                     "rows, every device activity of the call",
+        library_max_abs_diff=lib_err, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by,
+        bytes=nbytes, share_of_bound=bound_ms / ms["kernel"],
+        device_share_of_bound=bound_ms / split["device_ms"],
+        zero_fill_ms=1e3 * v * g.shape[1] * 4 / bw)
+    if uniform is not None:
+        # the same bags with uniform ids, timed in the same turns
+        u_err, u_tol = bag_backward_held(what + " uniform ids", g, uniform,
+                                         w, v)
+        u_bound, u_by, u_bytes, u_distinct = bag_backward_time_bound(
+            g, uniform, w, bw, flops)
+        u_split = backward_split(calls["kernel_uniform_ids"], g, uniform, v)
+        row["uniform_ids"] = dict(
+            distinct_rows=u_distinct,
+            **bag_backward_stats(g, uniform, w, v),
+            max_abs_err=u_err, tolerance=u_tol,
+            kernel_ms=ms["kernel_uniform_ids"],
+            kernel_device_ms=u_split["device_ms"],
+            parts_ms=u_split["parts_ms"],
+            bound_ms=u_bound, bound_by=u_by, bytes=u_bytes,
+            zipf_over_uniform=ms["kernel"] / ms["kernel_uniform_ids"],
+            zipf_over_uniform_device=(split["device_ms"]
+                                      / u_split["device_ms"]))
+    return row
+
+
+def phase_bag_backward_deploy(dev, bw, flops, batch: int = None,
+                              smoke: bool = False) -> dict:
+    import torch
     cases = bag_backward_deploy_cases(dev, batch, smoke)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     rows = {}
-
-    def held(case, g, ids, w, v):
-        # the sorted model bit for bit and two calls equal, then the
-        # item-order plain version within the bound
-        got = embedding_bag_backward(g, ids, w, v)
-        check(same_bits(got, embedding_bag_backward(g, ids, w, v)),
-              f"bag_backward_deploy {case}: two calls differ")
-        check(same_bits(got, embedding_bag_backward_sorted_ref(g, ids, w,
-                                                               v)),
-              f"bag_backward_deploy {case}: the kernel differs from its "
-              f"sorted model")
-        want = embedding_bag_backward_ref(g, ids, w, v)
-        err, tol, ok = bag_backward_close(got, want,
-                                          bag_backward_bound(g, ids, w, v))
-        check(ok, f"bag_backward_deploy {case}: |Δ| {err} beyond {tol}")
-        return err, tol
-
-    def bound_of(g, ids, w):
-        nbytes, distinct = bag_backward_bytes(g, ids, w)
-        by_bytes = 1e3 * nbytes / bw
-        by_ops = 1e3 * 2 * ids.numel() * g.shape[1] / flops
-        return (max(by_bytes, by_ops),
-                "bytes" if by_bytes >= by_ops else "operations", nbytes,
-                distinct)
-
-    def sort_ms_of(g, ids, w, v):
-        # torch.sort(stable=True) of the kept items' rows, every device
-        # activity of the call
-        keys = bag_backward_kept(g, ids, w, v).to(torch.int32)
-        return all_device_ms(lambda: torch.sort(keys, stable=True))
-
     for case, (g, ids, w, v, uniform) in cases.items():
-        err, tol = held(case, g, ids, w, v)
-        # the library: autograd's backward of F.embedding_bag (dense)
-        table = torch.zeros((v, g.shape[1]), device=dev, requires_grad=True)
-        out = F.embedding_bag(ids.long(), table, mode="sum",
-                              per_sample_weights=w)
-
-        def library():
-            return torch.autograd.grad(out, table, g, retain_graph=True)[0]
-        lib_err = float((library() - embedding_bag_backward(
-            g, ids, w, v)).abs().max())
-        calls = {"kernel": lambda: embedding_bag_backward(g, ids, w, v),
-                 "library": library}
-        if uniform is not None:
-            calls["kernel_uniform_ids"] = lambda: embedding_bag_backward(
-                g, uniform, w, v)
-        ms, turns = time_in_turns(calls, flush=flush.zero_)
-        split = backward_split(calls["kernel"], g, ids, v)
-        plain_ms = time_cuda(lambda: embedding_bag_backward_ref(g, ids, w, v),
-                             flush=flush.zero_)
-        bound_ms, bound_by, nbytes, distinct = bound_of(g, ids, w)
-        rows[case] = dict(
-            card=nvidia_smi(), table=[v, g.shape[1]],
-            shape=list(ids.shape), distinct_rows=distinct, c=PIECE,
-            **bag_backward_stats(g, ids, w, v),
-            max_abs_err=err, tolerance=tol, sorted_model_bits=True,
-            ms=ms["kernel"], kernel_ms=ms["kernel"],
-            kernel_device_ms=split["device_ms"],
-            parts_ms=split["parts_ms"], kernels_ms=split["kernels_ms"],
-            sort_passes=split["passes"],
-            sort_ms=split["parts_ms"]["sort"],
-            library_sort_ms=sort_ms_of(g, ids, w, v),
-            library_ms=ms["library"], turns_ms=turns,
-            kernel_over_library=ms["kernel"] / ms["library"],
-            library_call="torch.autograd.grad of F.embedding_bag(mode='sum', "
-                         "per_sample_weights) (dense)",
-            library_sort="torch.sort(stable=True) of the kept items' int32 "
-                         "rows, every device activity of the call",
-            library_max_abs_diff=lib_err, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by,
-            bytes=nbytes, share_of_bound=bound_ms / ms["kernel"],
-            device_share_of_bound=bound_ms / split["device_ms"],
-            zero_fill_ms=1e3 * v * g.shape[1] * 4 / bw)
-        if uniform is not None:
-            # the same bags with uniform ids, timed in the same turns
-            u_err, u_tol = held(case + "_uniform_ids", g, uniform, w, v)
-            u_bound, u_by, u_bytes, u_distinct = bound_of(g, uniform, w)
-            u_split = backward_split(calls["kernel_uniform_ids"], g, uniform,
-                                     v)
-            rows[case]["uniform_ids"] = dict(
-                distinct_rows=u_distinct,
-                **bag_backward_stats(g, uniform, w, v),
-                max_abs_err=u_err, tolerance=u_tol,
-                kernel_ms=ms["kernel_uniform_ids"],
-                kernel_device_ms=u_split["device_ms"],
-                parts_ms=u_split["parts_ms"],
-                bound_ms=u_bound, bound_by=u_by, bytes=u_bytes,
-                zipf_over_uniform=ms["kernel"] / ms["kernel_uniform_ids"],
-                zipf_over_uniform_device=(split["device_ms"]
-                                          / u_split["device_ms"]))
+        rows[case] = bag_backward_row(f"bag_backward_deploy {case}", g, ids,
+                                      w, v, bw, flops, flush.zero_, uniform)
         emit("bag_backward_deploy", case=case, **rows[case])
-        del table, out
     del cases, flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -5320,7 +5472,8 @@ def phase_gnn_serve(dev, cfg=None, parent=(GNN_PARENT_NODES,
     sample of a 232,965-node graph, 602 features, 41 classes) and molecule
     (``energy_and_forces`` on 128 molecules of 30 nodes and 64 edges); each
     card against the host and rotated (:func:`gnn_check`); ms a call,
-    nodes/s and graphs/s, peak memory."""
+    nodes/s and graphs/s, peak memory.  ``out["parent"]`` holds the parent
+    graph and its sampler for phase ``train_families``."""
     import torch
     from repro_torch.configs.gnn_family import NEQUIP, cfg_for_cell
     from repro_torch.data.synth import (NeighborSampler, molecule_batch,
@@ -5348,7 +5501,7 @@ def phase_gnn_serve(dev, cfg=None, parent=(GNN_PARENT_NODES,
              "species": g["species"][nodes],
              "node_feats": g["node_feats"][nodes],
              "senders": sub["senders"], "receivers": sub["receivers"]}
-    del g, sampler
+    out["parent"] = {"graph": g, "sampler": sampler}   # train_families'
     molecules_batch = molecule_batch(SEED, *molecules)
     for cell, task, c, b, items in (
             ("minibatch_lg", "classify", cell_cfg, batch, seeds),
@@ -5384,9 +5537,314 @@ def phase_gnn_serve(dev, cfg=None, parent=(GNN_PARENT_NODES,
     return out
 
 
+# --------------------------------------------------------------------- #
+# phase 22a: training for the families that had trained only on the host
+# (slice 12): both MoE configs and NequIP's two tasks card against host,
+# the launcher on five archs, and full-width steps held to the dry run
+# --------------------------------------------------------------------- #
+FAMILY_STEPS = 3
+FAMILY_LR = 1e-3
+LAUNCHED_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "nequip",
+                  "sasrec", "xdeepfm")
+FAMILY_SEQ = 4096               # train_4k's sequence
+FAMILY_BATCH = 1                # train_4k's global 256 cut to one card
+# the MoE configs' layers at full width: what the dry run fits under
+# FIT_LIMIT at one sequence of 4,096 tokens (Qwen2-MoE-A2.7B's 8 of 24,
+# 64.5 GB, about 6.9 GB a layer more; Qwen3-MoE-235B-A22B's 1 of 94,
+# 51.6 GB, about 30 GB a layer more; PERF.md §4)
+MOE_TRAIN_LAYERS = {"qwen2-moe-a2.7b": 8, "qwen3-moe-235b-a22b": 1}
+FULL_GRAPH_SM = (2708, 10556)   # full_graph_sm: Cora's nodes and edges
+
+
+def family_trainer(arch: str, cfg, batches: list, dev):
+    """A :func:`batches_trainer` of ``arch`` at ``cfg`` on ``dev``, the
+    weights drawn from the seed on the host, so every device starts from
+    the same bits."""
+    import torch
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch)
+    model = spec.init_fn(cfg, torch.Generator().manual_seed(SEED),
+                         "cpu").to(dev)
+    return batches_trainer(lambda m, b: spec.loss_fn(m, cfg, b), model,
+                           batches, FAMILY_LR)
+
+
+def family_card_vs_host(dev, arch: str, cfg, batches: list,
+                        what: str) -> dict:
+    """len(batches) ``Trainer`` steps on ``dev`` against the same steps on
+    the host in float32 and float64, batches widened too
+    (:func:`params_close`)."""
+    card = family_trainer(arch, cfg, batches, dev)
+    res = card.train()
+    losses = [m["loss"] for m in res["metrics"]]
+    check(res["step"] == len(batches) and all(np.isfinite(losses)),
+          f"{what}: {res}")
+    got = {n: p.detach() for n, p in card.model.named_parameters()}
+    ref32, ref64 = host_runs(
+        lambda d: family_trainer(arch, cfg, batches, d))
+    cmp = params_close(got, ref32, ref64, FAMILY_LR, len(batches), what)
+    return {**cmp, "config": cfg.name, "losses": losses,
+            "params": sum(p.numel() for p in got.values())}
+
+
+@contextlib.contextmanager
+def allocated_peak(dev):
+    """While open, the peak bytes allocated on ``dev`` above what was
+    allocated when it opened, in ``out["bytes"]`` at close: the
+    allocator's ``max_memory_allocated`` on the card; on the host (which
+    keeps no such count) ``launch.dryrun.LiveBytes``' count of the
+    storages made."""
+    import torch
+    from repro_torch.launch.dryrun import LiveBytes
+    out = {}
+    if torch.device(dev).type == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        yield out
+        torch.cuda.synchronize()
+        out["bytes"] = float(torch.cuda.max_memory_allocated() - before)
+    else:
+        with LiveBytes(dev) as live:
+            yield out
+        out["bytes"] = float(live.peak)
+
+
+def dry_estimate(arch: str, shape: str, dev, cfg, specs) -> dict:
+    """``launch.dryrun.run_cell`` of ``arch``'s cell ``shape`` at ``cfg``
+    with the batch shapes ``specs``, on fakes of ``dev``: its record, its
+    estimate held to at most FIT_LIMIT."""
+    from repro_torch.launch.dryrun import run_cell
+    rec = run_cell(arch, shape, dev, cfg, specs=specs)
+    what = f"the dry run of {arch}/{shape} at {cfg.name}"
+    check(rec["ok"], f"{what}: {rec.get('traceback', '')}")
+    check(rec["memory"]["peak_bytes"] <= FIT_LIMIT,
+          f"{what}: estimated at {rec['memory']['peak_bytes']:.0f} B, over "
+          f"{FIT_LIMIT:.0f} B")
+    return rec
+
+
+def estimate_row(est: dict, measured: float, what: str) -> dict:
+    """The dry run's record ``est`` held to the ``measured`` peak by
+    :func:`estimate_holds`."""
+    peak = est["memory"]["peak_bytes"]
+    check(estimate_holds(peak, measured),
+          f"{what}: the dry run estimates {peak:.0f} B, the run's peak is "
+          f"{measured:.0f} B")
+    return {"estimate_bytes": peak, "measured_bytes": measured,
+            "ratio": peak / measured if measured else None,
+            "estimate_fits": est["fits"], "dryrun_flops": est["cost"]["flops"],
+            "dryrun_trace_s": est["trace_s"]}
+
+
+def full_width_train(dev, arch: str, cfg, batch: dict, est: dict,
+                     steps: int = FAMILY_STEPS) -> dict:
+    """``steps`` ``Trainer`` steps of ``arch`` at ``cfg`` on the numpy
+    ``batch`` repeated, the weights drawn on ``dev`` from the seed and the
+    batch copied there inside :func:`allocated_peak`: the loss finite and
+    falling, ms a step (host clock, synchronised), and the peak held to
+    the dry run's record ``est`` of the same config and batch shapes."""
+    import torch
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch)
+    stamps = []
+    with allocated_peak(dev) as peak:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        t0 = time.perf_counter()
+        model = spec.init_fn(cfg, gen, dev)
+        tb = gnn_tensors(batch, dev)
+        _sync(dev)
+        init_s = time.perf_counter() - t0
+        trainer = batches_trainer(lambda m, b: spec.loss_fn(m, cfg, b),
+                                  model, [tb] * steps, FAMILY_LR)
+        trainer.step_fn = timed_step_fn(trainer.step_fn, dev, stamps)
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = trainer.train()
+    losses = [m["loss"] for m in res["metrics"]]
+    check(res["step"] == steps and all(np.isfinite(losses))
+          and losses[-1] < losses[0],
+          f"{arch} at {cfg.name}: the loss on a repeated batch is {losses}")
+    step_ms = 1e3 * np.diff([t0] + stamps)
+    params = sum(p.numel() for p in model.parameters())
+    del trainer, model, tb
+    gc.collect()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return {"card": nvidia_smi() if torch.device(dev).type == "cuda"
+            else "cpu", "arch": arch, "config": cfg.name, "params": params,
+            "init_s": init_s, "steps": steps, "step_ms": step_ms.tolist(),
+            "steady_step_ms": float(np.median(step_ms[1:])),
+            "losses": losses,
+            **estimate_row(est, peak["bytes"], f"{arch} at {cfg.name}")}
+
+
+def graph_minibatch(parent: dict, seeds: int, fanouts, rng) -> tuple:
+    """(batch, host ms): ``seeds`` seed nodes of the parent graph sampled
+    at ``fanouts`` by its ``NeighborSampler``, the subgraph's positions,
+    species, features and labels gathered, the label mask 1 at the seeds."""
+    g, sampler = parent["graph"], parent["sampler"]
+    t0 = time.perf_counter()
+    seed_nodes = rng.choice(sampler.n_nodes, seeds, replace=False)
+    sub = sampler.sample(seed_nodes, list(fanouts), rng)
+    nodes = sub["nodes"]
+    mask = np.zeros(len(nodes), np.float32)
+    mask[sub["seed_local"]] = 1.0
+    batch = {"positions": g["positions"][nodes],
+             "species": g["species"][nodes],
+             "node_feats": g["node_feats"][nodes],
+             "labels": g["labels"][nodes], "label_mask": mask,
+             "senders": sub["senders"], "receivers": sub["receivers"]}
+    return batch, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_train_families(dev, parent: dict, smoke: bool = False,
+                         seq: int = FAMILY_SEQ, lm_batch: int = FAMILY_BATCH,
+                         chunk: int = LM_TRAIN_CHUNK, seeds: int = GNN_SEEDS,
+                         fanouts=GNN_FANOUTS, molecules=GNN_MOLECULES,
+                         full_graph=FULL_GRAPH_SM) -> dict:
+    """(a) Qwen2-MoE-A2.7B, Qwen3-MoE-235B-A22B and NequIP's two tasks at
+    their smoke configs, FAMILY_STEPS card steps against host steps from
+    the same weights and batches; ``launch.train.main`` on LAUNCHED_ARCHS,
+    FAMILY_STEPS steps each, embedding_bag's launches counted; (b) at full
+    width (``smoke``: the MoE smoke configs), FAMILY_STEPS steps on one
+    repeated batch each: both MoE configs at ``seq`` tokens a sequence
+    (remat, attention chunks of ``chunk``), ``lm_batch`` sequences, cut in
+    depth to MOE_TRAIN_LAYERS (the dry run's estimate at most FIT_LIMIT),
+    and NequIP's minibatch_lg (sampled from ``parent``: phase gnn_serve's graph and
+    sampler), molecule (the force loss) and full_graph_sm."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.gnn_family import (NEQUIP, NEQUIP_SMOKE,
+                                                cfg_for_cell)
+    from repro_torch.configs.lm_family import get_config
+    from repro_torch.data import synth
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.dryrun import batch_specs
+    cuda = torch.device(dev).type == "cuda"
+    out = {"card_vs_host": {}, "launcher": {}, "full_width": {}}
+
+    # (a) card against host at the smoke configs
+    for arch, task, cfg in (
+            (MOE_ARCH, "lm", get_arch(MOE_ARCH).smoke_config),
+            (MOE3_ARCH, "lm", get_arch(MOE3_ARCH).smoke_config),
+            ("nequip", "classify", NEQUIP_SMOKE),
+            ("nequip", "molecule", cfg_for_cell(NEQUIP_SMOKE, "molecule"))):
+        spec = get_arch(arch)
+        batches = [spec.smoke_batch(cfg, "train", s)
+                   for s in range(FAMILY_STEPS)]
+        what = f"train_families {arch} {task}"
+        out["card_vs_host"][f"{arch}/{task}"] = family_card_vs_host(
+            dev, arch, cfg, batches, what)
+    emit("train_families_card_vs_host", **out["card_vs_host"],
+         tolerance=f"each leaf's mean |Δ| <= {TRAIN_RATIO} x the host's "
+                   f"float32-vs-float64 spread + 1 ulp, each element within "
+                   f"that or 2 x {FLIP_STEP} x lr a step")
+
+    # the launcher, the system's entry point
+    for arch in LAUNCHED_ARCHS:
+        argv = ["--arch", arch, "--steps", str(FAMILY_STEPS)]
+        if not cuda:
+            argv += ["--device", "cpu"]
+        _sync(dev)
+        bag_kernel.launches = bag_kernel.backward_launches = 0  # the path
+        t0 = time.perf_counter()
+        tr = launch_train.main(argv)
+        _sync(dev)
+        launches = (bag_kernel.launches, bag_kernel.backward_launches)
+        seconds = time.perf_counter() - t0                          # ends
+        losses = [m["loss"] for m in tr.metrics_log]
+        check(tr.step == FAMILY_STEPS and len(losses) == FAMILY_STEPS
+              and all(np.isfinite(losses)) and tr.device.type == (
+                  "cuda" if cuda else "cpu"),
+              f"launch.train --arch {arch}: step {tr.step}, losses "
+              f"{losses} on {tr.device}")
+        per = TRAIN_LAUNCHES.get(arch, 0) * FAMILY_STEPS if cuda else 0
+        check(launches == (per, per),
+              f"launch.train --arch {arch}: embedding_bag launches "
+              f"{launches}, expected {per} each")
+        out["launcher"][arch] = {"steps": tr.step, "losses": losses,
+                                 "launches": launches, "seconds": seconds}
+        del tr
+    emit("train_families_launcher", **out["launcher"])
+
+    # (b) full width: the MoE configs cut in depth to what the card holds
+    for arch in (MOE_ARCH, MOE3_ARCH):
+        base = get_config(arch, smoke=smoke)
+        layers = min(MOE_TRAIN_LAYERS[arch], base.n_layers)
+        cfg = dataclasses.replace(base, n_layers=layers, remat=True,
+                                  attn_chunk_q=chunk, attn_chunk_kv=chunk)
+        tokens = next(synth.token_batches(SEED, cfg.vocab, lm_batch, seq))
+        batch = {k: tokens[k] for k in ("tokens", "labels")}
+        est = dry_estimate(arch, "train_4k", dev, cfg, batch_specs(batch))
+        with dispatch_counts(dev) as counts:
+            row = full_width_train(dev, arch, cfg, batch, est)
+        n_routes, dropped, lost, chosen, held = (int(v) for v in counts)
+        n_tok = lm_batch * seq
+        # a layer and step each, twice under remat (the recompute)
+        dispatches = n_routes // (n_tok * cfg.moe.top_k)
+        steady = row["steady_step_ms"]
+        row.update(layers=layers, full_layers=base.n_layers,
+                   batch=lm_batch, seq=seq, remat=cfg.remat, chunk=chunk,
+                   dtype=cfg.dtype, tokens_per_s=1e3 * n_tok / steady,
+                   model_flops_per_step=lm_train_flops(cfg, n_tok, seq),
+                   dispatches=dispatches, dropped_share=dropped / n_routes,
+                   kept_overwritten_share=lost / max(n_routes - dropped, 1),
+                   experts_chosen=chosen / dispatches,
+                   experts_holding=held / dispatches)
+        # two counts of the step's work over the bf16 peak: the formula's
+        # (train_lm's, which counts the input embedding's lookups as
+        # products: most of a one-layer model's parameters) and the dry
+        # run's FlopCounter of this step (the matmuls that run, remat's
+        # recompute and the experts' capacity slots included)
+        row["model_flops_share_of_bf16_peak"] = (
+            row["model_flops_per_step"] / (steady / 1e3) / BF16_PEAK)
+        row["dryrun_flops_share_of_bf16_peak"] = (
+            row["dryrun_flops"] / (steady / 1e3) / BF16_PEAK)
+        out["full_width"][arch] = row
+        emit("train_families_full", cell=f"{arch}/train_4k", **row)
+
+    # NequIP at its full config on three cells
+    rng = np.random.default_rng(SEED + 11)
+    mb, sample_ms = graph_minibatch(parent, seeds, fanouts, rng)
+    graph = synth.random_graph(SEED, *full_graph,
+                               d_feat=cfg_for_cell(NEQUIP,
+                                                   "full_graph_sm").d_feat,
+                               n_classes=cfg_for_cell(
+                                   NEQUIP, "full_graph_sm").n_classes)
+    for cell, batch, items in (
+            ("minibatch_lg", mb, seeds),
+            ("molecule", synth.molecule_batch(SEED, *molecules),
+             molecules[0]),
+            ("full_graph_sm", graph, full_graph[0])):
+        cfg = cfg_for_cell(NEQUIP, cell)
+        est = dry_estimate("nequip", cell, dev, cfg, batch_specs(batch))
+        row = full_width_train(dev, "nequip", cfg, batch, est)
+        steady = row["steady_step_ms"]
+        row.update(nodes=int(len(batch["positions"])),
+                   edges=int(len(batch["senders"])),
+                   nodes_per_s=1e3 * len(batch["positions"]) / steady)
+        if cell == "minibatch_lg":
+            row.update(seeds=seeds, fanouts=list(fanouts),
+                       host_sample_ms=sample_ms, card_step_ms=steady,
+                       step_with_sampling_ms=sample_ms + steady,
+                       seeds_per_s=1e3 * items / (sample_ms + steady))
+        elif cell == "molecule":
+            row.update(graphs=items, graphs_per_s=1e3 * items / steady,
+                       loss="energy and force MSE (double backward)")
+        out["full_width"][f"nequip/{cell}"] = row
+        emit("train_families_full", cell=f"nequip/{cell}", **row)
+    return out
+
+
 # phase 23: the one-card dry run held against real steps (slice 9), and
 # each real step's kernel launches
 DRYRUN_CELLS = {("internlm2-1.8b", "long_500k"): {"gqa_decode": 24},
+                ("yi-9b", "long_500k"): {"gqa_decode": 48},
                 ("dlrm-rm2", "serve_p99"): {"embedding_bag": 1},
                 ("nequip", "molecule"): {}}
 DRYRUN_SHARE = 0.05          # an estimate within 5 % of the measured peak,
@@ -5609,11 +6067,15 @@ def main() -> int:
     back_err = timed("bag_backward_small", phase_bag_backward_small, dev)
     timed("train_lm", phase_train_lm, dev)
     timed("train_small", phase_train_small, dev)
-    rec_train = timed("train_recsys", phase_train_recsys, dev)
+    rec_train = timed("train_recsys", phase_train_recsys, dev, bw=bw,
+                      flops=flops)
     backs = timed("bag_backward_deploy", phase_bag_backward_deploy, dev, bw,
                   flops)
     timed("gnn_small", phase_gnn_small, dev)
-    timed("gnn_serve", phase_gnn_serve, dev)
+    gnn = timed("gnn_serve", phase_gnn_serve, dev)
+    timed("train_families", phase_train_families, dev,
+          parent=gnn.pop("parent"))
+    del gnn
     dry = timed("dryrun", phase_dryrun, dev)
     timed("dispatch", dispatch_cost, dev)
     dist = timed("dist", phase_dist, dev, dry=dist_dry)
@@ -5682,7 +6144,7 @@ def main() -> int:
         "max_abs_err": max(decode_err, dist["gqa"]["max_abs_err"],
                            *(deploy[c]["max_abs_err"]
                              for c in ("32k", "500k", "32k_g1",
-                                       "32k_g16"))),
+                                       "32k_g16", "500k_g8"))),
         "wide_g_d": [c for c in dist["gqa"]["cases"] if "kernel_ms" in c],
         "ms": k32["kernel_ms"], "kernel_ms": k32["kernel_ms"],
         "plain_ms": k32["plain_ms"], "library_ms": k32["library_ms"],
@@ -5694,7 +6156,8 @@ def main() -> int:
             "bound_ms", "bound_by")},
         **{case: {k: deploy[case][k] for k in (
             "shape", "g", "kernel_ms", "plain_ms", "fma_ms", "library_ms",
-            "bound_ms", "bound_by")} for case in ("32k_g1", "32k_g16")},
+            "bound_ms", "bound_by")} for case in ("32k_g1", "32k_g16",
+                                                   "500k_g8")},
     }, {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/csrc/embedding_bag.cu",
@@ -5724,8 +6187,12 @@ def main() -> int:
             "shape", "table", "kernel_ms", "plain_ms", "library_ms",
             "kernel_over_library", "kernel_device_ms", "bound_ms",
             "bound_by", "bound_refs_ms")} for case in ("zipf", "dlrm")},
-        "training_launches": sum(rec_train[a]["launches"] for a in (
-            "dlrm-rm2", "two-tower-retrieval")),
+        "training_launches": sum(rec_train[a]["launches"]
+                                 for a in RECSYS_TRAIN_ARCHS),
+        "train_shapes": {a: [{"table": k["table"], "shape": k["shape"],
+                              **k["forward"]}
+                             for k in rec_train[a]["kernel_times"]]
+                         for a in TIMED_TRAIN_ARCHS},
     }, {
         "name": "embedding_bag_backward", "route": "cuda",
         "source": "src/repro_torch/csrc/embedding_bag_backward.cu",
@@ -5743,14 +6210,18 @@ def main() -> int:
                   "vectors, a long run's pieces added in piece order; no "
                   "float atomics",
         "c": backs["dlrm"]["c"],
-        "launches": sum(rec_train[a]["backward_launches"] for a in (
-            "dlrm-rm2", "two-tower-retrieval")),
+        "launches": sum(rec_train[a]["backward_launches"]
+                        for a in RECSYS_TRAIN_ARCHS),
+        "train_shapes": {a: [{"table": k["table"], "shape": k["shape"],
+                              **k["backward"]}
+                             for k in rec_train[a]["kernel_times"]]
+                         for a in TIMED_TRAIN_ARCHS},
         "max_abs_err": max(back_err, *(r["max_abs_err"]
                                        for r in backs.values()),
                            backs["two_tower_hist"]["uniform_ids"][
                                "max_abs_err"],
-                           *(k["backward_max_abs_err"] for a in (
-                               "dlrm-rm2", "two-tower-retrieval")
+                           *(k["backward_max_abs_err"]
+                             for a in RECSYS_TRAIN_ARCHS
                              for k in rec_train[a]["lookups"])),
         "ms": backs["dlrm"]["kernel_ms"],
         "kernel_ms": backs["dlrm"]["kernel_ms"],

@@ -290,7 +290,7 @@ class ReplicaGroup:
     def mark_failed(self, replica: int) -> None:
         self.alive[replica] = False
 
-    # -- control-plane signals (for an autopilot; not ported yet) --------- #
+    # -- control-plane signals (read by repro_torch.dist.autopilot) ---- #
     def replica_seqnums(self) -> List[int]:
         """Per-replica committed seqnum high-water mark (-1 = empty).
 
@@ -664,7 +664,7 @@ class ShardedWarren:
     def health(self) -> List[List[bool]]:
         return [list(g.alive) for g in self.groups]
 
-    # -- control-plane signals (for an autopilot; not ported yet) ------------ #
+    # -- control-plane signals (read by repro_torch.dist.autopilot) ------- #
     def group_doc_counts(self) -> List[int]:
         """Committed document count per group (0 for retired groups)."""
         return [g.doc_count() for g in self.groups]

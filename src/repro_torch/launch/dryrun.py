@@ -63,6 +63,7 @@ the production mesh in a process of its own.
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -294,12 +295,27 @@ def cell_inputs(spec, cfg, specs: Dict[str, torch.Tensor], device,
     return out
 
 
+def batch_specs(batch) -> Dict[str, torch.Tensor]:
+    """A batch's arrays (numpy or tensors) as meta tensors of their shapes
+    and dtypes, the cell's ``batch_specs`` of a run at this batch's
+    shapes; scalars (a graph count) are left out."""
+    out = {}
+    for k, v in batch.items():
+        if isinstance(v, torch.Tensor):
+            out[k] = torch.empty(v.shape, dtype=v.dtype, device="meta")
+        elif hasattr(v, "shape") and getattr(v, "ndim", 0):
+            out[k] = torch.empty(v.shape, device="meta",
+                                 dtype=torch.from_numpy(v[:0]).dtype)
+    return out
+
+
 def build_cell(arch_name: str, shape_name: str, device, cfg=None,
-               seed: int = None):
+               seed: int = None, specs: Dict[str, torch.Tensor] = None):
     """(step, args, meta): the cell's real step and its arguments on
     ``device`` — uninitialised (for fakes) or, with ``seed``, the model
     drawn from the seed and inputs from it.  ``cfg`` (default: the arch's
-    full config) sets the model; the cell's shapes are the arch's."""
+    full config) sets the model; the cell's shapes are the arch's, or
+    ``specs`` (:func:`batch_specs`: a cut batch, a sampled graph)."""
     from repro_torch.configs import get_arch
     from repro_torch.configs.gnn_family import cfg_for_cell
     from repro_torch.models import transformer as T
@@ -308,6 +324,8 @@ def build_cell(arch_name: str, shape_name: str, device, cfg=None,
     spec = get_arch(arch_name)
     cfg = cfg or spec.config
     cell = spec.cells(cfg)[shape_name]
+    if specs is not None:
+        cell = dataclasses.replace(cell, batch_specs=dict(specs))
     dev = torch.device(device)
     gen = None
     if seed is not None:
@@ -424,11 +442,12 @@ def mesh_name(mesh) -> str:
 
 
 def run_cell(arch_name: str, shape_name: str, device="cuda", cfg=None,
-             seed: int = None, mesh=None, fsdp_mode: str = "auto"
-             ) -> Dict[str, Any]:
+             seed: int = None, mesh=None, fsdp_mode: str = "auto",
+             specs: Dict[str, torch.Tensor] = None) -> Dict[str, Any]:
     """The cell's record: on fakes of ``device`` (the dry run), or for
     real with ``seed`` (see the module's docstring); on ``mesh`` (a
-    ``DeviceMesh`` over a fake group, on fakes only) each device's."""
+    ``DeviceMesh`` over a fake group, on fakes only) each device's;
+    ``specs`` in place of the cell's batch shapes (:func:`build_cell`)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     t0 = time.time()
@@ -461,7 +480,7 @@ def run_cell(arch_name: str, shape_name: str, device="cuda", cfg=None,
                     torch.cuda.synchronize(dev)
                     before = torch.cuda.memory_allocated(dev)
                 step, args, meta = build_cell(arch_name, shape_name, dev,
-                                              cfg, seed)
+                                              cfg, seed, specs)
                 rec.update(meta)
                 if mesh is not None:
                     args, meta = place_cell(arch_name, shape_name, args,

@@ -1,8 +1,10 @@
-"""Training launcher: ``--arch <name>`` at its smoke config, an LM, a
-recsys model or NequIP looked up in the ``ArchSpec`` registry
+"""Training launcher: ``--arch <name>`` at its smoke config, an LM (an
+MoE too), a recsys model or NequIP looked up in the ``ArchSpec`` registry
 (``get_arch``, as ``src/repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch sasrec --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch qwen2-moe-a2.7b --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch nequip \
       --steps 20 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-rm2 \

@@ -114,7 +114,10 @@ def test_main_defaults_to_the_card(monkeypatch):
 def _small_configs():
     lm = dataclasses.replace(get_arch("internlm2-1.8b").smoke_config,
                              n_layers=3)
-    return {"internlm2-1.8b": lm,
+    # Yi-9B's smoke config has one KV head to InternLM2-1.8B's two: 6
+    # layers give its long_500k cache the same 402 MB
+    yi = dataclasses.replace(get_arch("yi-9b").smoke_config, n_layers=6)
+    return {"internlm2-1.8b": lm, "yi-9b": yi,
             "dlrm-rm2": get_arch("dlrm-rm2").smoke_config,
             "nequip": get_arch("nequip").smoke_config}
 
@@ -122,7 +125,7 @@ def _small_configs():
 def test_chip_smoke_dryrun_on_the_cpu():
     """Phase ``dryrun`` with the CPU as the device, at small configs: the
     real step's tracked peak and FLOPs equal the fakes', and the estimate
-    without long_500k's KV cache (3 layers: 402 MB) is refused."""
+    without long_500k's KV cache (402 MB in both LMs) is refused."""
     cells = {cell: {} for cell in chip_smoke.DRYRUN_CELLS}
     out = chip_smoke.phase_dryrun(torch.device("cpu"), cells,
                                   configs=_small_configs())
@@ -131,6 +134,7 @@ def test_chip_smoke_dryrun_on_the_cpu():
         assert row["estimate_bytes"] == row["measured_bytes"]
         assert row["flops"] == row["real_flops"] > 0
     assert out["internlm2-1.8b/long_500k"]["without_cache_refused"]
+    assert out["yi-9b/long_500k"]["without_cache_refused"]
 
 
 def test_chip_smoke_dryrun_refuses_a_wrong_estimate(monkeypatch):

@@ -1,7 +1,7 @@
 """N steps of the port's ``Trainer`` against N steps of
 ``repro.train.trainer.Trainer`` from the same converted init on the same
-batches: the LM smoke config and the four recsys smoke configs; and the
-trainer's prefetch (skip-and-backfill), checkpoint cadence and the data
+batches: the LM smoke config, both MoE smoke configs and the four recsys
+smoke configs; and the trainer's prefetch (skip-and-backfill), checkpoint cadence and the data
 state it carries.
 
 Tolerance: the reference's trainer run twice, in float32 and with its
@@ -15,7 +15,9 @@ a coordinate in opposite directions can differ by (2 · 2.5 · lr a step):
 the LM's embedding gradient passes through an RMS norm of rows of scale
 0.02, and there the reference's own float32 and float64 gradients differ
 by 4e-4 on entries of 2.7, enough to turn the first step's direction of
-a coordinate whose gradient is near zero.
+a coordinate whose gradient is near zero.  The MoE references run their
+float64 twin under ``test_torch_moe.reference_x64`` (their int32 widened:
+the scan carry changes type otherwise, fault (u)).
 """
 
 import dataclasses
@@ -43,6 +45,7 @@ from repro_torch.convert import (model_tree, recsys_from_jax,  # noqa: E402
 from repro_torch.dist.checkpoint import Stacked, tree_leaves  # noqa: E402
 from repro_torch.train import optimizer as TO  # noqa: E402
 from repro_torch.train import trainer as TTR  # noqa: E402
+from test_torch_moe import reference_x64  # noqa: E402
 
 RATIO = 8.0
 STEPS = 3
@@ -86,8 +89,10 @@ def _ref_run(spec, params, batches):
     return [np.asarray(x, np.float64) for x in jax.tree.leaves(t.params)]
 
 
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "dlrm-rm2", "xdeepfm",
-                                  "two-tower-retrieval", "sasrec"])
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "qwen2-moe-a2.7b",
+                                  "qwen3-moe-235b-a22b", "dlrm-rm2",
+                                  "xdeepfm", "two-tower-retrieval",
+                                  "sasrec"])
 def test_trainer_steps_match_reference(name):
     spec, tcfg, make_batch, loss_fn = _spec(name)
     params = spec.init_fn(spec.smoke_config, jax.random.PRNGKey(0))
@@ -95,7 +100,9 @@ def test_trainer_steps_match_reference(name):
     batches = [make_batch(s) for s in range(STEPS)]
     # the reference's step donates its parameters: each run gets a copy
     ref32 = _ref_run(spec, jax.tree.map(jnp.asarray, np_params), batches)
-    with jax.enable_x64(True):
+    with (reference_x64() if JLF.LM_SPECS.get(name) and
+          JLF.LM_SPECS[name].config.moe is not None else
+          jax.enable_x64(True)):
         ref64 = _ref_run(spec, jax.tree.map(
             lambda x: jnp.asarray(x, jnp.float64), np_params), batches)
     model = (transformer_from_jax(np_params, tcfg, "cpu")
