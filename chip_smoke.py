@@ -143,14 +143,15 @@ non-zero:
    probabilities, two card calls the same bits, the output within
    RECSYS_RATIO × the host's distance from its float64 run;
 12b. moe_serve, the MoE slice's main path: Qwen2-MoE-A2.7B at full width in
-   bfloat16 (24 layers, 60 experts, top-4, a shared expert; random
+   bfloat16 (12 of its 24 layers since phase serve_cells came, for time;
+   60 experts, top-4, a shared expert; random
    weights from the seed on the card, at phase 11's conditioned init: the
    logit check is blind at the reference's) behind
    ``LMServer(max_slots=8, max_len=1024)``, eight prompts of 8-32
    tokens (64-256 until phase 12c came, 32-128 until phase dist), 16 new
    tokens each, twice (equal
    tokens); gqa_decode's launch
-   count zeroed just before each call and read just after (24 × steps).
+   count zeroed just before each call and read just after (12 × steps).
    The logits are held against the same decode replayed in float32 with
    the plain attention and the decode's routing (T = 8 a step, so the
    same capacity, C = 1; an MoE forward over the same tokens has
@@ -163,9 +164,10 @@ non-zero:
    one Qwen2-MoE layer (experts redrawn at N(0, 1/d_in) too);
 12c. moe_serve_qwen3: the same phase for Qwen3-MoE-235B-A22B at full
    width in bfloat16 (d_model 4096, 64 query heads on 4 KV heads: G = 16,
-   128 experts, top-8) with 8 of its 94 layers (the card's memory: 42.3
-   GB), eight prompts of 64-256 tokens (the cache's data in two of
-   gqa_decode's splits at the last steps, checked), 8 × steps gqa_decode
+   128 experts, top-8) with 2 of its 94 layers (12.4 GB; 8 until phase
+   serve_cells came, for time), eight prompts of 64-256 tokens (the
+   cache's data in two of gqa_decode's splits at the last steps,
+   checked), 2 × steps gqa_decode
    launches through the mma kernel's 16-row instance, C = 1; its
    conditioned check
    at one Qwen3-MoE layer holds the G = 16 kernel against the plain
@@ -294,7 +296,25 @@ non-zero:
    within 5 % or 256 MiB of the allocator's, the FLOP counts equal, and
    for long_500k the estimate without the KV cache refused; gqa_decode's
    and embedding_bag's launch counts zeroed just before each real step
-   and read just after (24, 48 and 1);
+   and read just after (24, 48 and 1 a call; each real step runs twice,
+   the second call timed on the host clock, synchronised, beside its
+   bound); then, as phase ``serve_cells``, the registry's serve cells
+   that one card holds, each at its cut in ONE_CARD_CUTS (the batch or
+   depth the fit rule chose under 70 GB, or the attention chunk) and its
+   fakes traced in a subprocess started after the kernels' build:
+   decode_32k for the five LMs (a 32,768-position cache at B = 20, 16, 6
+   and 6, Qwen3-MoE at 8 of 94 layers and B = 51; every step's logits
+   finite, the cache-less estimate refused, gqa_decode at the cell's own
+   attention shape against its plain version), prefill_32k for
+   InternLM2-1.8B, Qwen2.5-14B and Qwen3-MoE (8 layers) at one sequence
+   of 32,768 tokens in attention chunks of 4,096 (the logits finite; the
+   blocked attention held against the unblocked one in a two-layer
+   prefill of 8,192 tokens at the conditioned init, phase 12's rule, an
+   fp8-weight prefill refused), and serve_bulk for the four recsys models
+   (262,144 rows; xDeepFM 65,536) and DLRM's and xDeepFM's
+   retrieval_cand (10^6 candidates; xDeepFM 65,536), each one's first
+   4,096 rows against the host over only the rows they read (phase 13's
+   bound);
 24. dispatch: the host µs a call of gqa_decode and embedding_bag through
    their operators and through their eager bodies, in turns (op, body,
    body, op): what the dispatcher adds to a call;
@@ -304,7 +324,7 @@ non-zero:
    version on the card and the host, each timed against it (fault (w));
    (b) one NCCL rank over a ``file://`` store and ``make_local_mesh()``
    over the card: InternLM2-1.8B at full width in bfloat16 from the seed
-   decodes 4 sequences (128-token prompts, then 32 new tokens, greedy) on
+   decodes 4 sequences (32-token prompts, then 32 new tokens, greedy) on
    plain tensors, then again with its parameters ``reshard``-ed onto
    ``lm_param_sharding`` and its cache onto ``lm_cache_sharding`` (DTensors
    through the operators' sharding rules): the same tokens and every
@@ -2557,7 +2577,8 @@ def phase_dist_gqa(dev) -> dict:
 # --------------------------------------------------------------------- #
 DIST_ARCH = "internlm2-1.8b"
 DIST_B = 4
-DIST_PROMPT = 128          # 256 until phase autopilot (run time)
+DIST_PROMPT = 32           # 256 until phase autopilot, 128 until phase
+                           # serve_cells (run time)
 DIST_NEW = 32
 # one cell a family, and Qwen2-MoE-A2.7B's train_4k: a cell of fault (x),
 # which the card's DTensor could not trace until the MoE layer reduced its
@@ -3610,11 +3631,11 @@ def phase_moe_small(dev) -> float:
 MOE_ARCH = "qwen2-moe-a2.7b"
 MOE3_ARCH = "qwen3-moe-235b-a22b"
 YI_ARCH = "yi-9b"               # decoded only at long_500k (phases 12, 23)
-# Qwen3-MoE-235B-A22B at full width (G = 64 / 4 = 16), cut in depth by the
-# card's memory: its 94 layers are about 470 GB in bfloat16; 8 layers are
-# 21.2 B parameters, 42.3 GB, which leaves room for the fp8 rounding in
-# place, the float32 replay's widened layer and the cache
-MOE3_LAYERS = 8
+# Qwen3-MoE-235B-A22B at full width (G = 64 / 4 = 16), cut in depth: its
+# 94 layers are about 470 GB in bfloat16; 8 layers (21.2 B parameters,
+# 42.3 GB) until phase serve_cells came, 2 (6.2 B, 12.4 GB) since, to
+# keep the whole run under 600 s (PERF.md §4)
+MOE3_LAYERS = 2
 # Qwen3-MoE's prompts: the longest (245 tokens) and 16 new tokens take the
 # cache past gqa_decode's first split (256 positions at 8 slots of 4 KV
 # heads on an H100), so the served decode merges data from two splits;
@@ -3625,6 +3646,10 @@ MOE3_PROMPT_LENS = (64, 256)
 # phase dist came (PERF.md §4)
 MOE_PROMPT_LENS = (8, 32)
 MOE_MAX_NEW = 16
+# Qwen2-MoE-A2.7B's layers: 24 until phase serve_cells came, 12 since, to
+# keep the whole run under 600 s (its steps are host-bound: about half
+# the time; PERF.md §4)
+MOE_LAYERS = 12
 # The logit check of phase 11 compares the decode with a forward; an MoE
 # forward over the same tokens routes T = B·S tokens at once and so has
 # another capacity (8 slots at decode: C = 1; 8 × 261 positions: C = 174),
@@ -3711,7 +3736,8 @@ def phase_moe_serve(dev, bw: float, cfg=None, slots: int = LM_SLOTS,
     from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
     from repro_torch.models.transformer import capacity, init_params
     from repro_torch.serve import LMServer
-    cfg = cfg or get_config(MOE_ARCH)
+    cfg = cfg or dataclasses.replace(get_config(MOE_ARCH),
+                                     n_layers=MOE_LAYERS)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -4905,10 +4931,141 @@ TIMED_TRAIN_ARCHS = ("sasrec", "xdeepfm")     # lookups timed at train shape
 # launch.dryrun's ``fits`` leaves out the CUDA contexts (this process's and
 # phase dist's subprocess's) and the allocator's block slack
 FIT_LIMIT = 70e9
-# train_batch cut to the largest power of two estimated at most FIT_LIMIT
-# (xDeepFM's 65,536 at 88.3 GB, 32,768 at 44.5 GB; PERF.md §4); the
-# others run it uncut
-RECSYS_TRAIN_BATCH = {"xdeepfm": 32_768}
+
+
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """A registry cell cut to one card: ``batch`` sequences, rows or
+    candidates, ``layers`` of the model's depth and attention chunks of
+    ``chunk`` (attn_chunk_q = attn_chunk_kv); None keeps the cell's own.
+    ``fit`` names the field that the fit rule chose (:func:`fit_rule`:
+    the largest value whose dry-run estimate is at most FIT_LIMIT, a power
+    of two for a recsys batch); the phase that runs the cell sets the
+    others, for time or by the card's memory."""
+    batch: int = None
+    layers: int = None
+    chunk: int = None
+    fit: str = None
+
+
+# Every cut of a registry cell this script makes, by (arch, shape); no
+# width and no sequence length is cut (PERF.md §4).  The fit rule's
+# choices are the dry run's on the card's fakes (:func:`fit_rule`).
+ONE_CARD_CUTS = {
+    # train_4k: 1 sequence of 4,096 tokens, attention chunks of 1,024;
+    # Qwen2-MoE-A2.7B's 9th layer and Qwen3-MoE's 2nd pass FIT_LIMIT
+    ("qwen2-moe-a2.7b", "train_4k"): Cut(batch=1, layers=8, chunk=1024,
+                                         fit="layers"),
+    ("qwen3-moe-235b-a22b", "train_4k"): Cut(batch=1, layers=1, chunk=1024,
+                                             fit="layers"),
+    ("xdeepfm", "train_batch"): Cut(batch=32_768, fit="batch"),
+    # decode_32k: B of 128 sequences against a 32,768-position cache;
+    # Qwen3-MoE at 8 of 94 layers (its 94 are 470 GB in bfloat16)
+    ("internlm2-1.8b", "decode_32k"): Cut(batch=20, fit="batch"),
+    ("yi-9b", "decode_32k"): Cut(batch=16, fit="batch"),
+    ("qwen2.5-14b", "decode_32k"): Cut(batch=6, fit="batch"),
+    ("qwen2-moe-a2.7b", "decode_32k"): Cut(batch=6, fit="batch"),
+    ("qwen3-moe-235b-a22b", "decode_32k"): Cut(batch=51, layers=8,
+                                               fit="batch"),
+    # prefill_32k: 1 of 32 sequences (each more adds a call's time), the
+    # blocked attention in chunks of 4,096 (the reference's configs leave
+    # it off: [B, H, S, S] float32 scores are 172 GB a layer for
+    # Qwen2.5-14B); Qwen2.5-14B at 8 of 48 layers for time (33.5 s a call
+    # at 48); Qwen3-MoE at 8 of 94 layers by the card's memory (61.6 GB);
+    # Yi-9B's and Qwen2-MoE's run in a builder run only
+    ("internlm2-1.8b", "prefill_32k"): Cut(batch=1, chunk=4096),
+    ("qwen2.5-14b", "prefill_32k"): Cut(batch=1, layers=8, chunk=4096),
+    ("yi-9b", "prefill_32k"): Cut(batch=1, chunk=4096),
+    ("qwen2-moe-a2.7b", "prefill_32k"): Cut(batch=1, chunk=4096),
+    ("qwen3-moe-235b-a22b", "prefill_32k"): Cut(batch=1, layers=8,
+                                                chunk=4096),
+    # recsys: serve_bulk's 262,144 rows, retrieval_cand's 10^6
+    ("dlrm-rm2", "serve_bulk"): Cut(batch=262_144, fit="batch"),
+    ("two-tower-retrieval", "serve_bulk"): Cut(batch=262_144, fit="batch"),
+    ("sasrec", "serve_bulk"): Cut(batch=262_144, fit="batch"),
+    ("xdeepfm", "serve_bulk"): Cut(batch=65_536, fit="batch"),
+    ("dlrm-rm2", "retrieval_cand"): Cut(batch=1_000_000, fit="batch"),
+    ("xdeepfm", "retrieval_cand"): Cut(batch=65_536, fit="batch"),
+}
+
+
+def cell_batch(arch: str, shape: str) -> int:
+    """The registry cell's own batch: the first dimension of its first
+    batch spec (sequences, rows, or DLRM's and xDeepFM's candidates)."""
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch)
+    return next(iter(spec.cells(spec.config)[shape].batch_specs.values())
+                ).shape[0]
+
+
+def cut_cell(arch: str, shape: str, cut: Cut = None, cfg=None) -> tuple:
+    """(cfg, specs): ``arch``'s config (``cfg``, default its full one) at
+    ``cut``'s depth and attention chunk (default: ONE_CARD_CUTS' entry),
+    and the cell's batch specs with every first dimension that is the
+    cell's batch set to ``cut.batch`` (None where the batch is uncut)."""
+    import torch
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch)
+    cut = cut or ONE_CARD_CUTS.get((arch, shape), Cut())
+    cfg = cfg or spec.config
+    over = {}
+    if cut.layers:
+        over["n_layers"] = min(cut.layers, cfg.n_layers)
+    if cut.chunk:
+        over.update(attn_chunk_q=cut.chunk, attn_chunk_kv=cut.chunk)
+    cfg = dataclasses.replace(cfg, **over) if over else cfg
+    if not cut.batch:
+        return cfg, None
+    full = cell_batch(arch, shape)
+    specs = {k: torch.empty((cut.batch,) + tuple(s.shape[1:]) if s.dim()
+                            and s.shape[0] == full else tuple(s.shape),
+                            dtype=s.dtype, device="meta")
+             for k, s in spec.cells(cfg)[shape].batch_specs.items()}
+    return cfg, specs
+
+
+def fit_candidates(arch: str, shape: str, field: str) -> list:
+    """The values the fit rule takes for ``field``, ascending: the
+    batch from 1 to the cell's own (powers of two for a recsys model,
+    then the cell's own), or the depth from 1 to the full config's."""
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch)
+    if field == "layers":
+        return list(range(1, spec.config.n_layers + 1))
+    full = cell_batch(arch, shape)
+    if spec.family == "recsys":
+        return [1 << i for i in range(full.bit_length())
+                if 1 << i < full] + [full]
+    return list(range(1, full + 1))
+
+
+def cut_estimate(arch: str, shape: str, dev, cut: Cut) -> float:
+    """The dry run's peak bytes of the cell at ``cut`` on fakes of
+    ``dev``."""
+    from repro_torch.launch.dryrun import run_cell
+    cfg, specs = cut_cell(arch, shape, cut)
+    rec = run_cell(arch, shape, dev, cfg, specs=specs)
+    check(rec["ok"], f"the dry run of {arch}/{shape} at {cut}: "
+                     f"{rec.get('traceback', '')}")
+    return rec["memory"]["peak_bytes"]
+
+
+def fit_rule(arch: str, shape: str, dev, cut: Cut = None) -> dict:
+    """The fit rule at ``cut`` (default ONE_CARD_CUTS' entry) on fakes of
+    ``dev``: the estimate at its ``fit`` value, and at the next larger of
+    :func:`fit_candidates` (None at the cell's own batch or full depth);
+    ``holds`` where the first is at most FIT_LIMIT and the second is
+    over it (the estimate grows with the batch and the depth)."""
+    cut = cut or ONE_CARD_CUTS[(arch, shape)]
+    values = fit_candidates(arch, shape, cut.fit)
+    at = values.index(getattr(cut, cut.fit))
+    est = cut_estimate(arch, shape, dev, cut)
+    nxt = values[at + 1] if at + 1 < len(values) else None
+    over = None if nxt is None else cut_estimate(
+        arch, shape, dev, dataclasses.replace(cut, **{cut.fit: nxt}))
+    return {"value": values[at], "estimate": est, "next": nxt,
+            "next_estimate": over,
+            "holds": est <= FIT_LIMIT and (over is None or over > FIT_LIMIT)}
 
 
 def phase_train_recsys(dev, smoke: bool = False, batch: int = None,
@@ -4916,7 +5073,7 @@ def phase_train_recsys(dev, smoke: bool = False, batch: int = None,
                        flops: float = None) -> dict:
     """DLRM-RM2, two-tower, SASRec and xDeepFM at full width (``smoke``:
     their smoke configs) at train_batch (``batch``), cut to
-    RECSYS_TRAIN_BATCH where it gives less, the dry run's estimate held to
+    ONE_CARD_CUTS' batch where it gives less, the dry run's estimate held to
     at most FIT_LIMIT, a few steps on one repeated batch through
     ``Trainer``, with every lookup's forward and backward kernel counted
     and the allocator's peak held to the estimate; on the card, given
@@ -4938,7 +5095,8 @@ def phase_train_recsys(dev, smoke: bool = False, batch: int = None,
         if name == "two-tower-retrieval":
             cfg = dataclasses.replace(cfg, loss_chunk=min(
                 TWOTOWER_LOSS_CHUNK, batch))
-        n = min(batch, RECSYS_TRAIN_BATCH.get(name, batch))
+        n = min(batch, ONE_CARD_CUTS.get((name, "train_batch"),
+                                         Cut()).batch or batch)
         b = train_batch(name, cfg, n, seed=SEED)
         est = dry_estimate(name, "train_batch", dev, cfg, batch_specs(b))
         with allocated_peak(dev) as peak:
@@ -5547,12 +5705,6 @@ FAMILY_LR = 1e-3
 LAUNCHED_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "nequip",
                   "sasrec", "xdeepfm")
 FAMILY_SEQ = 4096               # train_4k's sequence
-FAMILY_BATCH = 1                # train_4k's global 256 cut to one card
-# the MoE configs' layers at full width: what the dry run fits under
-# FIT_LIMIT at one sequence of 4,096 tokens (Qwen2-MoE-A2.7B's 8 of 24,
-# 64.5 GB, about 6.9 GB a layer more; Qwen3-MoE-235B-A22B's 1 of 94,
-# 51.6 GB, about 30 GB a layer more; PERF.md §4)
-MOE_TRAIN_LAYERS = {"qwen2-moe-a2.7b": 8, "qwen3-moe-235b-a22b": 1}
 FULL_GRAPH_SM = (2708, 10556)   # full_graph_sm: Cora's nodes and edges
 
 
@@ -5702,8 +5854,8 @@ def graph_minibatch(parent: dict, seeds: int, fanouts, rng) -> tuple:
 
 
 def phase_train_families(dev, parent: dict, smoke: bool = False,
-                         seq: int = FAMILY_SEQ, lm_batch: int = FAMILY_BATCH,
-                         chunk: int = LM_TRAIN_CHUNK, seeds: int = GNN_SEEDS,
+                         seq: int = FAMILY_SEQ, lm_batch: int = None,
+                         chunk: int = None, seeds: int = GNN_SEEDS,
                          fanouts=GNN_FANOUTS, molecules=GNN_MOLECULES,
                          full_graph=FULL_GRAPH_SM) -> dict:
     """(a) Qwen2-MoE-A2.7B, Qwen3-MoE-235B-A22B and NequIP's two tasks at
@@ -5712,8 +5864,9 @@ def phase_train_families(dev, parent: dict, smoke: bool = False,
     FAMILY_STEPS steps each, embedding_bag's launches counted; (b) at full
     width (``smoke``: the MoE smoke configs), FAMILY_STEPS steps on one
     repeated batch each: both MoE configs at ``seq`` tokens a sequence
-    (remat, attention chunks of ``chunk``), ``lm_batch`` sequences, cut in
-    depth to MOE_TRAIN_LAYERS (the dry run's estimate at most FIT_LIMIT),
+    (remat), cut as ONE_CARD_CUTS says: its batch of sequences (or
+    ``lm_batch``), attention chunks (or ``chunk``) and depth (the dry
+    run's estimate at most FIT_LIMIT),
     and NequIP's minibatch_lg (sampled from ``parent``: phase gnn_serve's graph and
     sampler), molecule (the force loss) and full_graph_sm."""
     import torch
@@ -5775,21 +5928,23 @@ def phase_train_families(dev, parent: dict, smoke: bool = False,
     # (b) full width: the MoE configs cut in depth to what the card holds
     for arch in (MOE_ARCH, MOE3_ARCH):
         base = get_config(arch, smoke=smoke)
-        layers = min(MOE_TRAIN_LAYERS[arch], base.n_layers)
+        cut = ONE_CARD_CUTS[(arch, "train_4k")]
+        n_seq, ch = lm_batch or cut.batch, chunk or cut.chunk
+        layers = min(cut.layers, base.n_layers)
         cfg = dataclasses.replace(base, n_layers=layers, remat=True,
-                                  attn_chunk_q=chunk, attn_chunk_kv=chunk)
-        tokens = next(synth.token_batches(SEED, cfg.vocab, lm_batch, seq))
+                                  attn_chunk_q=ch, attn_chunk_kv=ch)
+        tokens = next(synth.token_batches(SEED, cfg.vocab, n_seq, seq))
         batch = {k: tokens[k] for k in ("tokens", "labels")}
         est = dry_estimate(arch, "train_4k", dev, cfg, batch_specs(batch))
         with dispatch_counts(dev) as counts:
             row = full_width_train(dev, arch, cfg, batch, est)
         n_routes, dropped, lost, chosen, held = (int(v) for v in counts)
-        n_tok = lm_batch * seq
+        n_tok = n_seq * seq
         # a layer and step each, twice under remat (the recompute)
         dispatches = n_routes // (n_tok * cfg.moe.top_k)
         steady = row["steady_step_ms"]
         row.update(layers=layers, full_layers=base.n_layers,
-                   batch=lm_batch, seq=seq, remat=cfg.remat, chunk=chunk,
+                   batch=n_seq, seq=seq, remat=cfg.remat, chunk=ch,
                    dtype=cfg.dtype, tokens_per_s=1e3 * n_tok / steady,
                    model_flops_per_step=lm_train_flops(cfg, n_tok, seq),
                    dispatches=dispatches, dropped_share=dropped / n_routes,
@@ -5841,14 +5996,36 @@ def phase_train_families(dev, parent: dict, smoke: bool = False,
     return out
 
 
-# phase 23: the one-card dry run held against real steps (slice 9), and
-# each real step's kernel launches
+# phase 23: the one-card dry run held against real steps (slice 9), each
+# real step's kernel launches a call
 DRYRUN_CELLS = {("internlm2-1.8b", "long_500k"): {"gqa_decode": 24},
                 ("yi-9b", "long_500k"): {"gqa_decode": 48},
                 ("dlrm-rm2", "serve_p99"): {"embedding_bag": 1},
                 ("nequip", "molecule"): {}}
+# and the registry's serve cells that one card holds (slice 13), each at
+# its ONE_CARD_CUTS cut: a decode step runs gqa_decode once a layer, a
+# recsys serve call embedding_bag once a lookup (phase 13's counts)
+SERVE_CELLS = {("internlm2-1.8b", "decode_32k"): {"gqa_decode": 24},
+               ("yi-9b", "decode_32k"): {"gqa_decode": 48},
+               ("qwen2.5-14b", "decode_32k"): {"gqa_decode": 48},
+               ("qwen2-moe-a2.7b", "decode_32k"): {"gqa_decode": 24},
+               ("qwen3-moe-235b-a22b", "decode_32k"): {"gqa_decode": 8},
+               ("internlm2-1.8b", "prefill_32k"): {},
+               ("qwen2.5-14b", "prefill_32k"): {},
+               ("qwen3-moe-235b-a22b", "prefill_32k"): {},
+               ("dlrm-rm2", "serve_bulk"): {"embedding_bag": 1},
+               ("xdeepfm", "serve_bulk"): {"embedding_bag": 2},
+               ("two-tower-retrieval", "serve_bulk"): {"embedding_bag": 2},
+               ("sasrec", "serve_bulk"): {"embedding_bag": 1},
+               ("dlrm-rm2", "retrieval_cand"): {"embedding_bag": 1},
+               ("xdeepfm", "retrieval_cand"): {"embedding_bag": 2}}
 DRYRUN_SHARE = 0.05          # an estimate within 5 % of the measured peak,
 DRYRUN_FLOOR = 256 << 20     # or within 256 MiB, whichever is larger
+DRYRUN_CALLS = 2             # the real step's calls; the second is timed
+PREFILL_CHECK = 8192         # tokens of the blocked-against-unblocked check
+PREFILL_CHECK_LAYERS = 1     # its depth: one layer's unblocked scores of
+                             # Qwen3-MoE are 17.2 GB at 8,192 tokens
+CELL_SAMPLE = 4096           # rows a recsys cell's host check recomputes
 DISPATCH_CALLS = 2000        # calls a turn of dispatch_cost
 
 
@@ -5908,28 +6085,278 @@ def estimate_holds(estimate: float, measured: float) -> bool:
                                            DRYRUN_FLOOR)
 
 
-def phase_dryrun(dev, cells=DRYRUN_CELLS, seed: int = SEED,
-                 configs: dict = None) -> dict:
-    """Each cell's dry run (``launch.dryrun.run_cell``) on fakes of
-    ``dev``, then the same step for real at full width (the model and
-    inputs from ``seed``; a decode cache at length S − 1), held to it: the
-    estimated peak within :func:`estimate_holds` of the allocator's peak
-    above what was allocated before the cell was built, the real step's
-    FLOP count equal to the fake one, and, for a cell with a KV cache, the
-    estimate without the cache refused.  gqa_decode's and embedding_bag's
-    launch counts are zeroed just before the real step and read just
-    after, and must be ``cells``' (every other kernel's 0).  ``configs``
-    maps an arch to a config to run in place of its full one (the CPU
-    tests' small sizes)."""
+def cell_kind(arch: str, shape: str) -> str:
+    """``decode``, ``prefill`` or the arch's family (recsys, gnn)."""
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch)
+    if spec.family != "lm":
+        return spec.family
+    return "prefill" if spec.cells(spec.config)[shape].note == "prefill" \
+        else "decode"
+
+
+def fakes_write(device: str, path: str, cells=SERVE_CELLS) -> None:
+    """Each of ``cells``' dry runs on fakes of ``device`` at its
+    ONE_CARD_CUTS cut, one JSON line each in ``path`` (what
+    :func:`fakes_start`'s subprocess runs)."""
+    from repro_torch.launch.dryrun import run_cell
+    with open(path, "a") as fh:
+        for arch, shape in cells:
+            cfg, specs = cut_cell(arch, shape)
+            rec = run_cell(arch, shape, device, cfg, specs=specs)
+            fh.write(json.dumps(rec) + "\n")
+            fh.flush()
+
+
+def fakes_start(dev, cells=SERVE_CELLS):
+    """:func:`fakes_write` for ``cells`` in a subprocess on fakes of
+    ``dev`` (they hold no card memory; tracing a 32k prefill takes tens of
+    seconds of host Python), beside the other phases on another host
+    core.  Returns what :func:`fakes_collect` waits for."""
+    import tempfile
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fakes_")
+    path = os.path.join(tmp.name, "fakes.jsonl")
+    # fakes compute nothing: one thread, and behind the phases' host work
+    code = ("import os, sys; os.nice(10); import chip_smoke; "
+            "chip_smoke.fakes_write(sys.argv[1], sys.argv[2], "
+            "[tuple(c.split(':')) for c in sys.argv[3:]])")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, torch_device_type(dev), path]
+        + [f"{a}:{s}" for a, s in cells], cwd=here,
+        env=dict(os.environ, PYTHONPATH=os.path.join(here, "src"),
+                 OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    atexit.register(_kill, proc)
+    return proc, tmp, path, cells, time.perf_counter()
+
+
+def fakes_collect(started, timeout: float = 600) -> dict:
+    """{(arch, shape): record} of :func:`fakes_start`'s subprocess."""
+    proc, tmp, path, cells, t0 = started
+    with tmp:
+        try:
+            _, err = proc.communicate(timeout=timeout)
+        finally:
+            _kill(proc)
+        recs = []
+        if os.path.exists(path):
+            with open(path) as fh:
+                recs = [json.loads(line) for line in fh]
+    check(proc.returncode == 0 and len(recs) == len(cells),
+          f"the fakes' subprocess wrote {len(recs)} of {len(cells)} "
+          f"records: {err[-2000:]}")
+    emit("dryrun_fakes", seconds=time.perf_counter() - t0,
+         trace_s={f"{r['arch']}/{r['shape']}": r.get("trace_s")
+                  for r in recs})
+    return {(r["arch"], r["shape"]): r for r in recs}
+
+
+def all_finite(t) -> bool:
+    """No inf or NaN in ``t``, read in slices of about 2^24 elements (a
+    32k prefill's logits are 10 GB)."""
     import torch
+    if not t.is_floating_point():
+        return True
+    flat = t.reshape(-1, t.shape[-1]) if t.dim() > 1 else t.reshape(-1, 1)
+    rows = max(1, (1 << 24) // max(flat.shape[1], 1))
+    return all(bool(torch.isfinite(flat[i:i + rows]).all())
+               for i in range(0, flat.shape[0], rows))
+
+
+def recsys_rows_check(arch: str, model, batch: dict, out) -> dict:
+    """The card's ``out`` on the first CELL_SAMPLE rows (or candidates)
+    against the same function on the host in float32 and float64 over
+    only the rows they read (:func:`host_subset`), phase 13's bound."""
+    import copy
+    from repro_torch.configs.recsys_family import serve
+    n = min(CELL_SAMPLE, out.shape[0])
+    rows = {k: v[:n].cpu().numpy() for k, v in batch.items()}
+    host, sub = host_subset(arch, model, rows)
+    want = serve(arch, host, sub)
+    want64 = serve(arch, copy.deepcopy(host).double(), sub)
+    cmp = recsys_close(out[:n], want, want64)
+    check(cmp["ok"], f"{arch}: the first {n} rows are {cmp['max_abs_err']} "
+                     f"from the host, tolerance {cmp['tolerance']} (scale "
+                     f"{cmp['scale']})")
+    return {"rows": n, **cmp}
+
+
+def cell_inspector(arch: str, kind: str):
+    """``run_cell``'s ``inspect``: every call's output finite (a decode
+    step's logits, not the cache it also returns); the first call of a
+    recsys cell also against the host (:func:`recsys_rows_check`)."""
+    import torch
+
+    def tensors(tree) -> list:
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        if isinstance(tree, dict):
+            tree = list(tree.values())
+        return [t for x in tree for t in tensors(x)] \
+            if isinstance(tree, (list, tuple)) else []
+
+    def inspect(args, out):
+        outs = tensors(out[0] if kind == "decode" else out)
+        row = {"finite": all(all_finite(t) for t in outs)}
+        check(row["finite"], f"{arch} ({kind}): non-finite output")
+        if kind == "recsys" and not seen:
+            seen.append(True)
+            row["host"] = recsys_rows_check(arch, args[0], args[1], out)
+        return row
+    seen = []
+    return inspect
+
+
+def cell_bound(arch: str, shape: str, kind: str, cfg, specs: dict,
+               flops: float, bw: float, fp32: float) -> tuple:
+    """(bound_ms, bound_by): the least time of one call of the cell's step
+    on the card, the larger of its bytes over the memory rate and its
+    FLOPs (the dry run's count) over the peak of the model's dtype
+    (BF16_PEAK for bfloat16, ``fp32`` else).  The bytes: for a decode
+    step every weight but the embedding, its rows of the embedding and
+    every K and V row of the cache (phase 12's step bound); for a prefill
+    the weights and the logits written; none counted for the others."""
+    from repro_torch.configs import get_arch
+    peak = BF16_PEAK if getattr(cfg, "dtype", "") == "bfloat16" else fp32
+    by_ops = 1e3 * flops / peak
+    nbytes = 0
+    if kind in ("decode", "prefill"):
+        spec = get_arch(arch)
+        model = spec.abstract_params(cfg)
+        elt = model.embed.element_size()
+        nbytes = sum(p.numel() * p.element_size()
+                     for p in model.parameters()) \
+            - model.embed.numel() * elt
+        b = specs["tokens"].shape[0]
+        if kind == "decode":
+            seq = int(spec.cells(cfg)[shape].note.split("=")[1])
+            nbytes += b * cfg.d_model * elt + 2 * cfg.n_layers * b * seq \
+                * cfg.n_kv_heads * cfg.head_dim * elt
+        else:
+            nbytes += b * specs["tokens"].shape[1] * cfg.vocab * elt
+    by_bytes = 1e3 * nbytes / bw
+    return (max(by_ops, by_bytes),
+            "operations" if by_ops >= by_bytes else "bytes")
+
+
+def decode_kernel_check(dev, what: str, cfg, b: int, seq: int,
+                        seed: int) -> float:
+    """gqa_decode at a decode cell's own attention shape, q [b, Hkv, G,
+    D] against K and V [b, seq, Hkv, D] in the cell's dtype drawn from
+    the seed, every position valid, against its plain version
+    (:func:`check_deploy`); max |Δ|."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 23)
+    dt, hkv, d = cfg.torch_dtype, cfg.n_kv_heads, cfg.head_dim
+    q = torch.randn((b, hkv, cfg.group_size, d), generator=g,
+                    device=dev).to(dt)
+    k, v = (torch.empty((b, seq, hkv, d), dtype=dt, device=dev)
+            .normal_(generator=g) for _ in range(2))
+    length = torch.full((b,), seq, dtype=torch.int32, device=dev)
+    err = check_deploy(what, q, k, v, length)
+    del q, k, v
+    return err
+
+
+def prefill_check(dev, arch: str, cfg, seed: int) -> dict:
+    """The blocked attention of ``cfg`` (its chunks) against the
+    reference's unblocked configuration (``attn_chunk_q = 0``) in a
+    prefill of one sequence of PREFILL_CHECK tokens at ``cfg``'s width and
+    PREFILL_CHECK_LAYERS of its depth, the weights at phase 11's
+    conditioned init:
+    the blocked logits against the float32 forward may be at most
+    LOGIT_RATIO times as far in mean |Δ| as the unblocked bf16 logits are
+    (the yardstick), top-1 within TOP1_SLACK, as in phase 12; an fp8-weight
+    blocked prefill must fail it."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    n_tok = PREFILL_CHECK
+    cfg = dataclasses.replace(cfg, n_layers=min(PREFILL_CHECK_LAYERS,
+                                                cfg.n_layers))
+    plain_cfg = dataclasses.replace(cfg, attn_chunk_q=0, attn_chunk_kv=0)
+    check(cfg.attn_chunk_q and n_tok > cfg.attn_chunk_q,
+          f"{arch}: {n_tok} tokens do not run the blocked attention")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    model = get_arch(arch).init_fn(cfg, g, dev)
+    condition_(model, g)
+    tokens = torch.randint(0, cfg.vocab, (1, n_tok), generator=g,
+                           device=dev)
+    # one set of logits at a time beside the float32 ones: Qwen3-MoE's
+    # unblocked layer holds two of its 17.2 GB score tensors at once
+    model.cfg = plain_cfg
+    with torch.no_grad():
+        ref = T.forward(model, tokens, dtype=torch.float32)
+    plain = T.prefill(model, tokens)
+    yard = logit_agreement(plain, ref)
+    model.cfg = cfg
+    blocked = T.prefill(model, tokens)
+    got = logit_agreement(blocked, ref)
+    direct = logit_agreement(blocked, plain)
+    del plain, blocked
+
+    def holds(a: dict) -> bool:
+        return (a["mean_abs"] <= LOGIT_RATIO * yard["mean_abs"]
+                and a["top1_agree"] >= yard["top1_agree"] - TOP1_SLACK)
+    fp8_round_(model)
+    fp8 = logit_agreement(T.prefill(model, tokens), ref)
+    row = {"tokens": n_tok, "layers": cfg.n_layers,
+           "chunk": cfg.attn_chunk_q, "blocked_vs_f32": got,
+           "unblocked_vs_f32": yard, "blocked_vs_unblocked": direct,
+           "fp8_vs_f32": fp8, "holds": holds(got),
+           "fp8_refused": not holds(fp8),
+           "tolerance": f"mean |d| <= {LOGIT_RATIO} x the unblocked bf16 "
+                        f"prefill's from float32, top-1 within "
+                        f"{TOP1_SLACK}; an fp8-weight prefill must fail"}
+    check(row["holds"], f"{arch}: the blocked prefill is {got} from the "
+                        f"float32 one, the unblocked {yard}")
+    check(row["fp8_refused"], f"{arch}: the prefill check passes fp8 "
+                              f"weights ({fp8})")
+    del model, ref, tokens
+    return row
+
+
+def phase_dryrun(dev, cells=DRYRUN_CELLS, seed: int = SEED,
+                 configs: dict = None, cuts: dict = None, fakes: dict = None,
+                 bw: float = None, flops: float = None) -> dict:
+    """Each cell's dry run (``launch.dryrun.run_cell``) on fakes of
+    ``dev`` (or its record in ``fakes``, made beside the other phases by
+    :func:`fakes_start`), then the same step for real (the model and
+    inputs from ``seed``; a decode cache at length S − 1), DRYRUN_CALLS
+    calls, held to it: the estimated peak within :func:`estimate_holds` of
+    the allocator's peak above what was allocated before the cell was
+    built, the first call's FLOP count equal to the fake one, and, for a
+    cell with a KV cache, the estimate without the cache refused.  Each
+    cell runs at its cut in ``cuts`` (default ONE_CARD_CUTS; uncut where
+    it has none), on ``configs``' config for its arch where given (the
+    CPU tests' small sizes).  gqa_decode's and embedding_bag's launch
+    counts are zeroed just before the real step and read just after, and
+    must be ``cells``' a call (every other kernel's 0).  Every call's
+    output is finite; a decode cell's gqa_decode is held against its plain
+    version at the cell's attention shape, a prefill cell's blocked
+    attention against the unblocked one (:func:`prefill_check`), a recsys
+    cell's first rows against the host (:func:`recsys_rows_check`).  Each
+    row has the second call's ms (host clock, synchronised), tokens or
+    examples a second and, given ``bw`` and ``flops``, the step's bound
+    (:func:`cell_bound`)."""
+    import torch
+    from repro_torch.configs import get_arch
     from repro_torch.kernels.embedding_bag import kernel as bag_kernel
     from repro_torch.kernels.gqa_decode import kernel as gqa_kernel
     from repro_torch.launch.dryrun import run_cell
     cuda = torch.device(dev).type == "cuda"
+    cuts = ONE_CARD_CUTS if cuts is None else cuts
     out = {}
     for (arch, shape), want in cells.items():
-        cfg = (configs or {}).get(arch)
-        fake = run_cell(arch, shape, dev, cfg)
+        t_cell = time.perf_counter()
+        kind = cell_kind(arch, shape)
+        cut = cuts.get((arch, shape), Cut())
+        cfg, specs = cut_cell(arch, shape, cut, (configs or {}).get(arch))
+        fake = (fakes or {}).get((arch, shape)) or run_cell(
+            arch, shape, dev, cfg, specs=specs)
         check(fake["ok"], f"dry run of {arch}/{shape}: "
               f"{fake.get('traceback', '')}")
         gc.collect()
@@ -5937,21 +6364,32 @@ def phase_dryrun(dev, cells=DRYRUN_CELLS, seed: int = SEED,
             torch.cuda.empty_cache()
         gqa_kernel.launches = 0                     # the real step's path
         bag_kernel.launches = bag_kernel.backward_launches = 0
-        real = run_cell(arch, shape, dev, cfg, seed=seed)
+        real = run_cell(arch, shape, dev, cfg, seed=seed, specs=specs,
+                        calls=DRYRUN_CALLS,
+                        inspect=cell_inspector(arch, kind))
         launches = {"gqa_decode": gqa_kernel.launches,          # ends here
                     "embedding_bag": bag_kernel.launches,
                     "embedding_bag_backward": bag_kernel.backward_launches}
         check(real["ok"], f"real step of {arch}/{shape}: "
               f"{real.get('traceback', '')}")
-        check(launches == {k: want.get(k, 0) for k in launches},
-              f"{arch}/{shape}: launches {launches}, want {want}")
+        check(launches == {k: DRYRUN_CALLS * want.get(k, 0)
+                           for k in launches},
+              f"{arch}/{shape}: launches {launches} in {DRYRUN_CALLS} "
+              f"calls, want {want} a call")
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
         est = fake["memory"]["peak_bytes"]
         got = real["memory"].get("allocator_peak_bytes",
                                  real["memory"]["peak_bytes"])
-        row = {"estimate_bytes": est, "measured_bytes": got,
+        specs = specs or get_arch(arch).cells(cfg)[shape].batch_specs
+        n = next(iter(specs.values())).shape[0]
+        step_ms = 1e3 * real["call_s"][-1]
+        row = {"kind": kind, "cut": dataclasses.asdict(cut),
+               "config": {"n_layers": getattr(cfg, "n_layers", None),
+                          "attn_chunk_q": getattr(cfg, "attn_chunk_q",
+                                                  None)},
+               "batch": n, "estimate_bytes": est, "measured_bytes": got,
                "ratio": est / got, "fits": fake["fits"],
                "capacity_bytes": fake["capacity_bytes"],
                "flops": fake["cost"]["flops"],
@@ -5961,7 +6399,21 @@ def phase_dryrun(dev, cells=DRYRUN_CELLS, seed: int = SEED,
                "temp_bytes": fake["memory"]["temp_bytes"],
                "tracked_real_bytes": real["memory"]["peak_bytes"],
                "trace_s": fake["trace_s"], "real_step_s": real["trace_s"],
-               "launches": launches}
+               "call_s": real["call_s"], "ms_per_step": step_ms,
+               "inspected": real["inspected"],
+               "launches": launches,
+               "launches_per_call": {k: v // DRYRUN_CALLS
+                                     for k, v in launches.items()}}
+        if kind == "prefill":
+            row["tokens_per_s"] = 1e3 * n * specs["tokens"].shape[1] / step_ms
+        elif kind == "decode":
+            row["tokens_per_s"] = 1e3 * n / step_ms
+        else:
+            row["examples_per_s"] = 1e3 * n / step_ms
+        if bw and flops:
+            row["bound_ms"], row["bound_by"] = cell_bound(
+                arch, shape, kind, cfg, specs, row["flops"], bw, flops)
+            row["share_of_bound"] = row["bound_ms"] / step_ms
         check(estimate_holds(est, got),
               f"{arch}/{shape}: estimate {est:.0f} B, measured {got:.0f} B")
         check(row["flops"] == row["real_flops"],
@@ -5974,6 +6426,18 @@ def phase_dryrun(dev, cells=DRYRUN_CELLS, seed: int = SEED,
             check(row["without_cache_refused"],
                   f"{arch}/{shape}: the check passes an estimate without "
                   f"the KV cache")
+        if kind == "decode":
+            seq = int(get_arch(arch).cells(cfg)[shape].note.split("=")[1])
+            row["kernel_shape"] = [n, seq, cfg.n_kv_heads, cfg.head_dim]
+            row["kernel_g"] = cfg.group_size
+            row["kernel_max_abs_err"] = decode_kernel_check(
+                dev, f"{arch}/{shape}'s gqa_decode", cfg, n, seq, seed)
+        elif kind == "prefill":
+            row["prefill_check"] = prefill_check(dev, arch, cfg, seed)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        row["seconds"] = time.perf_counter() - t_cell
         out[f"{arch}/{shape}"] = row
         emit("dryrun", cell=f"{arch}/{shape}", **row)
     return out
@@ -6029,6 +6493,8 @@ def main() -> int:
     # a subprocess on its own host core from here on (its five cells take
     # 150 s there); phase dist collects it
     dist_dry = dist_dryrun_start(dev)
+    # so do the serve cells' dry runs on the card's fakes (phase 23)
+    serve_fakes = fakes_start(dev)
     phase_s = {}
 
     def timed(name, fn, *args, **kwargs):
@@ -6076,7 +6542,9 @@ def main() -> int:
     timed("train_families", phase_train_families, dev,
           parent=gnn.pop("parent"))
     del gnn
-    dry = timed("dryrun", phase_dryrun, dev)
+    dry = timed("dryrun", phase_dryrun, dev, bw=bw, flops=flops)
+    dry.update(timed("serve_cells", phase_dryrun, dev, SERVE_CELLS,
+                     fakes=fakes_collect(serve_fakes), bw=bw, flops=flops))
     timed("dispatch", dispatch_cost, dev)
     dist = timed("dist", phase_dist, dev, dry=dist_dry)
     emit("done", seconds=time.perf_counter() - t_start, phase_s=phase_s)
@@ -6144,7 +6612,13 @@ def main() -> int:
         "max_abs_err": max(decode_err, dist["gqa"]["max_abs_err"],
                            *(deploy[c]["max_abs_err"]
                              for c in ("32k", "500k", "32k_g1",
-                                       "32k_g16", "500k_g8"))),
+                                       "32k_g16", "500k_g8")),
+                           *(r["kernel_max_abs_err"] for r in dry.values()
+                             if "kernel_max_abs_err" in r)),
+        "cells": {c: {k: r[k] for k in ("kernel_shape", "kernel_g",
+                                        "kernel_max_abs_err",
+                                        "launches_per_call")}
+                  for c, r in dry.items() if "kernel_shape" in r},
         "wide_g_d": [c for c in dist["gqa"]["cases"] if "kernel_ms" in c],
         "ms": k32["kernel_ms"], "kernel_ms": k32["kernel_ms"],
         "plain_ms": k32["plain_ms"], "library_ms": k32["library_ms"],

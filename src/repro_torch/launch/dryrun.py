@@ -47,7 +47,9 @@ from the seed, inputs drawn in range from it, a decode cache at
 ``length`` S − 1 (every position read), the peak from the allocator's
 ``max_memory_allocated`` above what was allocated before the cell was
 built, and the same FLOP counter, so a real step can be held to its
-estimate.
+estimate.  A real run may call the step again (``calls``: each call's
+host seconds, synchronised, in ``call_s``; memory and FLOPs stay the
+first call's) and look at each call's output (``inspect``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
@@ -443,11 +445,15 @@ def mesh_name(mesh) -> str:
 
 def run_cell(arch_name: str, shape_name: str, device="cuda", cfg=None,
              seed: int = None, mesh=None, fsdp_mode: str = "auto",
-             specs: Dict[str, torch.Tensor] = None) -> Dict[str, Any]:
+             specs: Dict[str, torch.Tensor] = None, calls: int = 1,
+             inspect=None) -> Dict[str, Any]:
     """The cell's record: on fakes of ``device`` (the dry run), or for
     real with ``seed`` (see the module's docstring); on ``mesh`` (a
     ``DeviceMesh`` over a fake group, on fakes only) each device's;
-    ``specs`` in place of the cell's batch shapes (:func:`build_cell`)."""
+    ``specs`` in place of the cell's batch shapes (:func:`build_cell`).
+    A real run calls the step ``calls`` times, and ``inspect(args, out)``
+    after each call, its results in ``inspected``; only the first call is
+    counted."""
     from torch.utils.flop_counter import FlopCounterMode
 
     t0 = time.time()
@@ -505,11 +511,25 @@ def run_cell(arch_name: str, shape_name: str, device="cuda", cfg=None,
                 out = step(*args)
             if allocator:
                 torch.cuda.synchronize(dev)
-            rec["trace_s"] = round(time.time() - t1, 3)
+                allocator_peak = torch.cuda.max_memory_allocated(dev) - before
+            first_s = time.time() - t1
+            rec["trace_s"] = round(first_s, 3)
             outputs = sum(n for st, n in storages_bytes(out, dev.type).items()
                           if st not in arg_st)
             peak = live.peak
             accessed = live.accessed
+            if seed is not None:
+                rec["call_s"] = [first_s]
+                rec["inspected"] = [inspect(args, out)] if inspect else []
+                for _ in range(calls - 1):
+                    del out
+                    t1 = time.perf_counter()
+                    out = step(*args)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    rec["call_s"].append(time.perf_counter() - t1)
+                    if inspect:
+                        rec["inspected"].append(inspect(args, out))
             del out, step, args
         rec["memory"] = {"argument_bytes": float(arguments),
                          "output_bytes": float(outputs),
@@ -517,8 +537,7 @@ def run_cell(arch_name: str, shape_name: str, device="cuda", cfg=None,
                                                  - outputs, 0)),
                          "peak_bytes": float(peak)}
         if allocator:
-            rec["memory"]["allocator_peak_bytes"] = float(
-                torch.cuda.max_memory_allocated(dev) - before)
+            rec["memory"]["allocator_peak_bytes"] = float(allocator_peak)
         rec["cost"] = {"flops": float(counter.get_total_flops()),
                        "bytes accessed": float(accessed)}
         rec["collectives"] = comms.stats if mesh is not None else {}

@@ -140,6 +140,7 @@ from _torch_procs import run_ranks, run_reference  # noqa: E402
 
 CROSS_POD_PORT = """
 import sys, numpy as np, torch
+import torch.distributed as dist
 from repro_torch.launch.mesh import file_process_group, make_mesh_from_sizes
 from repro_torch.dist.compression import cross_pod_reduce_compressed
 rank, n, init, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
@@ -150,6 +151,10 @@ with file_process_group("gloo", n, rank, init):
     g = {k: torch.from_numpy(data[f"g:{k}"][rank]) for k in names}
     r = {k: torch.from_numpy(data[f"r:{k}"][rank]) for k in names}
     out, res = cross_pod_reduce_compressed(g, r, mesh, axis_name="pod")
+    # every rank done before any tears its group down, and no mesh left
+    # holding a group for the interpreter's exit to destroy
+    dist.barrier()
+    del mesh
 np.savez(f"{work}/port{rank}.npz", **{f"out:{k}": out[k].numpy() for k in names},
          **{f"res:{k}": res[k].numpy() for k in names})
 """
@@ -251,6 +256,7 @@ def test_cross_pod_refuses_more_than_129_ranks():
 
 TRAIN_PORT = """
 import sys, numpy as np, torch
+import torch.distributed as dist
 from repro_torch.launch.mesh import file_process_group, make_mesh_from_sizes
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state, make_train_step
 rank, n, init, work = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4]
@@ -266,6 +272,8 @@ with file_process_group("gloo", n, rank, init):
                            reduce_axis="pod", mesh=mesh)
     state = init_opt_state(model, compress_grads=True)
     state, metrics = step(model, state, torch.from_numpy(data["x"][rank]))
+    dist.barrier()          # as CROSS_POD_PORT: no rank tears down early
+    del mesh, step
 np.savez(f"{work}/port{rank}.npz", w=model.w.detach().numpy(),
          ef=state["ef"]["w"].numpy(), mu=state["mu"]["w"].numpy(),
          loss=metrics["loss"].numpy())

@@ -313,7 +313,10 @@ def _keys(obj):
     return type(obj).__name__
 
 
-def _admin_answers(pkg, ap, sim, tmp_path):
+def _admin_answers(pkg, ap, sim, tmp_path, during=None):
+    """Each admin endpoint's status and key structure, the server over a
+    2 × 2 warren, a controller after three ticks and an SLO monitor;
+    ``during`` is called once the server is up, before the requests."""
     from repro.dist.shard_router import ShardedWarren as RefSharded
     from repro_torch.dist.shard_router import ShardedWarren
     cls = RefSharded if pkg is R else ShardedWarren
@@ -331,6 +334,8 @@ def _admin_answers(pkg, ap, sim, tmp_path):
     mon.tick()
     out = {}
     with pkg.AdminServer(warren=warren, controller=ctl, slo=mon) as admin:
+        if during is not None:
+            during()
         tid = pkg.tracer().last_trace("autopilot.tick").trace_id
         for path in ("/healthz", "/readyz", "/metrics.json", "/traces",
                      f"/traces/{tid}", "/routing", "/autopilot/decisions",
@@ -349,21 +354,55 @@ def _admin_answers(pkg, ap, sim, tmp_path):
     return out
 
 
-def test_admin_endpoints_give_the_same_keys(tmp_path):
+def _both_admin_answers(tmp_path, port_during=None):
+    """(ref, port): each package's admin answers (:func:`_admin_answers`),
+    and from ``/metrics.json`` every family that either package's
+    process-wide registry held before the calls taken out: ``reset()``
+    keeps families, so those are what earlier tests in the process made,
+    and only the families the admin calls made are compared."""
     (tmp_path / "ref").mkdir()
     (tmp_path / "port").mkdir()
     for pkg in PKGS:
         pkg.registry().reset()
         pkg.tracer().reset()
+    before = set().union(*(pkg.registry().snapshot() for pkg in PKGS))
     ref = _admin_answers(R, RA, RS, tmp_path / "ref")
-    port = _admin_answers(T, TA, TS, tmp_path / "port")
+    port = _admin_answers(T, TA, TS, tmp_path / "port", during=port_during)
+    for out in (ref, port):
+        status, keys = out["/metrics.json"]
+        out["/metrics.json"] = (status, {**keys, "metrics": {
+            name: v for name, v in keys["metrics"].items()
+            if name not in before}})
+    return ref, port
+
+
+def _same_keys(ref, port):
     assert ref.keys() == port.keys()
     for path in ref:
         if path == "/metrics":
             continue     # each registry also holds its own package's past
         assert ref[path] == port[path], path
+
+
+def test_admin_endpoints_give_the_same_keys(tmp_path):
+    ref, port = _both_admin_answers(tmp_path)
+    _same_keys(ref, port)
     assert {"autopilot_ticks_total", "autopilot_tick_ms"} <= \
         set(port["/metrics"][1])
+
+
+def test_admin_keys_refuse_a_family_of_one_package(tmp_path):
+    """A family that only the port's admin call makes (a fresh name, so
+    no earlier test can have made it) fails the comparison, whatever ran
+    before in the process."""
+    def one_more():
+        T.registry().counter("admin_probe_only_in_port_total",
+                             "made by this test alone").inc()
+    ref, port = _both_admin_answers(tmp_path, port_during=one_more)
+    assert "admin_probe_only_in_port_total" in port["/metrics.json"][1][
+        "metrics"]
+    with pytest.raises(AssertionError, match="/metrics.json"):
+        _same_keys(ref, port)
 
 
 # --------------------------------------------------------------------- #

@@ -70,7 +70,8 @@ def test_chip_smoke_train_families_on_the_cpu():
     for arch in ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"):
         row = full[arch]
         assert row["full_layers"] == 2
-        assert row["layers"] == min(2, chip_smoke.MOE_TRAIN_LAYERS[arch])
+        assert row["layers"] == min(
+            2, chip_smoke.ONE_CARD_CUTS[(arch, "train_4k")].layers)
         assert row["dispatches"] == 2 * row["layers"] * row["steps"]
         assert 0.0 <= row["dropped_share"] < 1.0
     for row in full.values():
