@@ -128,10 +128,11 @@ non-zero:
    [4, 32768, 8, 128] (K and V drawn anew from the seed; all S and the
    cache's lengths), at long_500k's [1, 524288, 8, 128], at
    Qwen2-MoE-A2.7B's [4, 32768, 16, 128] (G = 1), at Qwen3-MoE-235B's
-   [4, 32768, 4, 128] (G = 16) and at Yi-9B's long_500k layer
-   [1, 524288, 4, 128] (G = 8), checked against its
-   plain version with a tolerance scaled to the output and timed against
-   it, the fma kernel (the design before the mma path),
+   [4, 32768, 4, 128] (G = 16) and at the long_500k layers of Yi-9B
+   [1, 524288, 4, 128] (G = 8), Qwen2-MoE-A2.7B [1, 524288, 16, 128]
+   (G = 1) and Qwen3-MoE-235B [1, 524288, 4, 128] (G = 16), checked
+   against its plain version with a tolerance scaled to the output and
+   timed against it, the fma kernel (the design before the mma path),
    ``scaled_dot_product_attention`` and its bound;
 12a. moe_small: ``moe_block`` and ``moe_dispatch`` on the card and on the
    host, float32 and bfloat16: no overflow, the three probes of the
@@ -277,41 +278,46 @@ non-zero:
    both MoE configs, NequIP, SASRec and xDeepFM (embedding_bag's launches
    counted); (b) at full width, 3 steps on one repeated batch each, the
    loss finite and falling, ms a step, the allocator's peak held to the
-   dry run's estimate of the same config and batch shapes: both MoE
+   dry run's estimate of the same config and batch shapes (the LMs' dry
+   runs traced in the fakes' subprocess): Qwen2.5-14B, Yi-9B and both MoE
    configs in bfloat16 at one sequence of 4,096 tokens (remat, attention
-   chunks of 1,024), as many layers as the dry run fits under 70 GB
-   (tokens/s, the model FLOPs' share of the bf16 peak, the dispatch's
-   drop and overwrite shares), and NequIP's minibatch_lg (1,024 seeds at
+   chunks of 1,024), as many layers as the dry run fits under 70 GB (14
+   and 29 of 48, 8 of 24, 1 of 94; tokens/s, the model FLOPs' share of
+   the bf16 peak, and for the MoE configs the dispatch's drop and
+   overwrite shares), and NequIP's minibatch_lg (1,024 seeds at
    fanout 15-10 sampled from phase 22's parent graph: host sampling and
    card step apart), molecule (128 molecules, the force loss: a double
    backward through ``index_add`` on the card) and full_graph_sm (2,708
    nodes, 10,556 edges, 1,433 features);
 23. dryrun, the registry's one-card dry run: ``launch.dryrun.run_cell``
    on the card's fakes (no memory, no data; the kernels' fake
-   implementations) for InternLM2-1.8B's and Yi-9B's long_500k (a
-   524,288-position KV cache; 51.5 GB for Yi-9B beside its 17.7 GB of
-   weights), DLRM-RM2's serve_p99 and NequIP's molecule (a train step,
-   forces included), then each step for real at full width (weights and
-   inputs from the seed, the cache at length S − 1): the estimated peak
-   within 5 % or 256 MiB of the allocator's, the FLOP counts equal, and
-   for long_500k the estimate without the KV cache refused; gqa_decode's
-   and embedding_bag's launch counts zeroed just before each real step
-   and read just after (24, 48 and 1 a call; each real step runs twice,
-   the second call timed on the host clock, synchronised, beside its
-   bound); then, as phase ``serve_cells``, the registry's serve cells
-   that one card holds, each at its cut in ONE_CARD_CUTS (the batch or
-   depth the fit rule chose under 70 GB, or the attention chunk) and its
-   fakes traced in a subprocess started after the kernels' build:
-   decode_32k for the five LMs (a 32,768-position cache at B = 20, 16, 6
-   and 6, Qwen3-MoE at 8 of 94 layers and B = 51; every step's logits
-   finite, the cache-less estimate refused, gqa_decode at the cell's own
-   attention shape against its plain version), prefill_32k for
-   InternLM2-1.8B, Qwen2.5-14B and Qwen3-MoE (8 layers) at one sequence
-   of 32,768 tokens in attention chunks of 4,096 (the logits finite; the
-   blocked attention held against the unblocked one in a two-layer
-   prefill of 8,192 tokens at the conditioned init, phase 12's rule, an
-   fp8-weight prefill refused), and serve_bulk for the four recsys models
-   (262,144 rows; xDeepFM 65,536) and DLRM's and xDeepFM's
+   implementations; traced in a subprocess started after the kernels'
+   build) for InternLM2-1.8B's and Yi-9B's long_500k (a 524,288-position
+   KV cache; 51.5 GB for Yi-9B beside its 17.7 GB of weights), DLRM-RM2's
+   serve_p99 and NequIP's molecule (a train step, forces included), then
+   each step for real at full width (weights and inputs from the seed,
+   the cache at length S − 1): the estimated peak within 5 % or 256 MiB
+   of the allocator's, the FLOP counts equal, and for long_500k the
+   estimate without the KV cache refused; gqa_decode's and
+   embedding_bag's launch counts zeroed just before each real step and
+   read just after (24, 48 and 1 a call; each real step runs twice, the
+   second call timed on the host clock, synchronised, beside its bound);
+   then, as phase ``serve_cells``, the registry's serve cells that one
+   card holds, each at its cut in ONE_CARD_CUTS (the batch or depth the
+   fit rule chose under 70 GB, or the attention chunk), its fakes traced
+   in the same subprocess: decode_32k for the five LMs (a 32,768-position
+   cache at B = 20, 16, 6 and 6, Qwen3-MoE at 8 of 94 layers and B = 51)
+   and long_500k for Qwen2.5-14B, Qwen2-MoE-A2.7B and Qwen3-MoE (one
+   sequence against 524,288 positions at 24 of 48, 12 of 24 and 11 of 94
+   layers; every step's logits finite, the cache-less estimate refused,
+   gqa_decode at the cell's own attention shape against its plain
+   version), prefill_32k for the five LMs (Qwen2.5-14B and Qwen3-MoE at
+   4 layers, the others at 8) at one sequence of 32,768 tokens in
+   attention chunks of 4,096 (the logits finite; the blocked attention
+   held against the unblocked one in a one-layer prefill of 8,192 tokens
+   at the conditioned init, phase 12's rule, an fp8-weight prefill
+   refused), and serve_bulk for the four
+   recsys models (262,144 rows; xDeepFM 65,536) and DLRM's and xDeepFM's
    retrieval_cand (10^6 candidates; xDeepFM 65,536), each one's first
    4,096 rows against the host over only the rows they read (phase 13's
    bound);
@@ -3355,6 +3361,20 @@ def phase_decode_deploy(dev, bw, flops, cfg=None, b: int = DEPLOY_B,
     emit("decode_deploy_kernel", case="500k_g8", arch=yi.name,
          **rows["500k_g8"])
     del kv, q
+    # the MoE configs' long_500k layers (phase serve_cells decodes both):
+    # Qwen2-MoE-A2.7B's Hkv = 16, G = 1 and Qwen3-MoE-235B's Hkv = 4, G = 16
+    for case, arch in (("500k_g1", MOE_ARCH), ("500k_g16", MOE3_ARCH)):
+        moe = get_config(arch)
+        kv = [torch.empty((1, s_long, moe.n_kv_heads, moe.head_dim),
+                          dtype=dt, device=dev).normal_(generator=gen)
+              for _ in range(2)]
+        q = torch.randn((1, moe.n_kv_heads, moe.group_size, moe.head_dim),
+                        generator=gen, device=dev,
+                        dtype=torch.float32).to(dt)
+        rows[case] = time_decode_kernel(f"500k G = {moe.group_size}", q,
+                                        kv[0], kv[1], full, bw, flops, flush)
+        emit("decode_deploy_kernel", case=case, arch=moe.name, **rows[case])
+        del kv, q
     # the MoE configs' layers at the 32k cache: Qwen2-MoE-A2.7B's Hkv = 16,
     # G = 1, and Qwen3-MoE-235B's Hkv = 4, G = 16 (the mma kernel's 16-row
     # instance)
@@ -4514,10 +4534,8 @@ def phase_bag_backward_small(dev) -> float:
 # --------------------------------------------------------------------- #
 # phase 17: the index-backed LM trainer at InternLM2-1.8B width
 # --------------------------------------------------------------------- #
-LM_TRAIN_ARCH = "internlm2-1.8b"
-LM_TRAIN_BATCH = 4           # train_4k's global 256 cut to what one card holds
+LM_TRAIN_ARCH = "internlm2-1.8b"   # its batch and chunk: ONE_CARD_CUTS
 LM_TRAIN_STEPS = 3
-LM_TRAIN_CHUNK = 1024        # attn_chunk_q = attn_chunk_kv
 LM_TRAIN_DOCS = 16
 LM_TRAIN_DOC_LEN = 8192      # mean words a document: 4,096-token windows
 BF16_PEAK = 989e12           # H100 SXM dense bf16 (data sheet)
@@ -4544,14 +4562,16 @@ def timed_step_fn(step_fn, dev, stamps: list):
 
 
 def phase_train_lm(dev, arch: str = LM_TRAIN_ARCH, smoke: bool = False,
-                   batch: int = LM_TRAIN_BATCH, seq: int = None,
+                   batch: int = None, seq: int = None,
                    steps: int = LM_TRAIN_STEPS, n_docs: int = LM_TRAIN_DOCS,
                    doc_len: int = LM_TRAIN_DOC_LEN,
-                   chunk: int = LM_TRAIN_CHUNK) -> dict:
+                   chunk: int = None) -> dict:
     """The port's pipeline over seeded long documents, then
     ``IndexedCorpusLoader``, then ``Trainer`` on the model at full width in
     bfloat16 with remat and blocked attention, ``steps`` steps; then two
-    steps on one repeated batch, whose loss must fall."""
+    steps on one repeated batch, whose loss must fall.  ``batch``
+    sequences a step and attention chunks of ``chunk`` (attn_chunk_q =
+    attn_chunk_kv) default to ``arch``'s train_4k cut in ONE_CARD_CUTS."""
     import torch
     from repro_torch.configs.lm_family import SHAPES, get_config, loss_fn
     from repro_torch.core import DynamicIndex, Warren
@@ -4563,6 +4583,8 @@ def phase_train_lm(dev, arch: str = LM_TRAIN_ARCH, smoke: bool = False,
     from repro_torch.train.trainer import Trainer, TrainerConfig
     cuda = torch.device(dev).type == "cuda"
     seq = seq or SHAPES["train_4k"]["seq"]
+    cut = ONE_CARD_CUTS[(arch, "train_4k")]
+    batch, chunk = batch or cut.batch, chunk or cut.chunk
     cfg = dataclasses.replace(get_config(arch, smoke=smoke), remat=True,
                               attn_chunk_q=chunk, attn_chunk_kv=chunk)
     t0 = time.perf_counter()
@@ -4953,11 +4975,18 @@ class Cut:
 # choices are the dry run's on the card's fakes (:func:`fit_rule`).
 ONE_CARD_CUTS = {
     # train_4k: 1 sequence of 4,096 tokens, attention chunks of 1,024;
-    # Qwen2-MoE-A2.7B's 9th layer and Qwen3-MoE's 2nd pass FIT_LIMIT
+    # the next layer of each passes FIT_LIMIT (weights, gradients and
+    # AdamW's moments of the whole model are 177 GB for Qwen2.5-14B)
+    ("qwen2.5-14b", "train_4k"): Cut(batch=1, layers=14, chunk=1024,
+                                     fit="layers"),
+    ("yi-9b", "train_4k"): Cut(batch=1, layers=29, chunk=1024, fit="layers"),
     ("qwen2-moe-a2.7b", "train_4k"): Cut(batch=1, layers=8, chunk=1024,
                                          fit="layers"),
     ("qwen3-moe-235b-a22b", "train_4k"): Cut(batch=1, layers=1, chunk=1024,
                                              fit="layers"),
+    # InternLM2-1.8B's training path (phase train_lm) at 4 of 256
+    # sequences, for time
+    ("internlm2-1.8b", "train_4k"): Cut(batch=4, chunk=1024),
     ("xdeepfm", "train_batch"): Cut(batch=32_768, fit="batch"),
     # decode_32k: B of 128 sequences against a 32,768-position cache;
     # Qwen3-MoE at 8 of 94 layers (its 94 are 470 GB in bfloat16)
@@ -4967,17 +4996,23 @@ ONE_CARD_CUTS = {
     ("qwen2-moe-a2.7b", "decode_32k"): Cut(batch=6, fit="batch"),
     ("qwen3-moe-235b-a22b", "decode_32k"): Cut(batch=51, layers=8,
                                                fit="batch"),
+    # long_500k: one sequence against a 524,288-position cache (Qwen2.5-14B's
+    # alone is 103 GB, Qwen2-MoE's 4.3 GB a layer); InternLM2-1.8B and
+    # Yi-9B hold theirs uncut (phase dryrun)
+    ("qwen2.5-14b", "long_500k"): Cut(layers=24, fit="layers"),
+    ("qwen2-moe-a2.7b", "long_500k"): Cut(layers=12, fit="layers"),
+    ("qwen3-moe-235b-a22b", "long_500k"): Cut(layers=11, fit="layers"),
     # prefill_32k: 1 of 32 sequences (each more adds a call's time), the
     # blocked attention in chunks of 4,096 (the reference's configs leave
     # it off: [B, H, S, S] float32 scores are 172 GB a layer for
-    # Qwen2.5-14B); Qwen2.5-14B at 8 of 48 layers for time (33.5 s a call
-    # at 48); Qwen3-MoE at 8 of 94 layers by the card's memory (61.6 GB);
-    # Yi-9B's and Qwen2-MoE's run in a builder run only
-    ("internlm2-1.8b", "prefill_32k"): Cut(batch=1, chunk=4096),
-    ("qwen2.5-14b", "prefill_32k"): Cut(batch=1, layers=8, chunk=4096),
-    ("yi-9b", "prefill_32k"): Cut(batch=1, chunk=4096),
-    ("qwen2-moe-a2.7b", "prefill_32k"): Cut(batch=1, chunk=4096),
-    ("qwen3-moe-235b-a22b", "prefill_32k"): Cut(batch=1, layers=8,
+    # Qwen2.5-14B); each cut in depth for time: InternLM2-1.8B, Yi-9B and
+    # Qwen2-MoE at 8 layers (a call took 6.6 s, 26.3 s and 8.0 s at full
+    # depth), Qwen2.5-14B and Qwen3-MoE at 4 (5.6 s and 9.6 s a call at 8)
+    ("internlm2-1.8b", "prefill_32k"): Cut(batch=1, layers=8, chunk=4096),
+    ("qwen2.5-14b", "prefill_32k"): Cut(batch=1, layers=4, chunk=4096),
+    ("yi-9b", "prefill_32k"): Cut(batch=1, layers=8, chunk=4096),
+    ("qwen2-moe-a2.7b", "prefill_32k"): Cut(batch=1, layers=8, chunk=4096),
+    ("qwen3-moe-235b-a22b", "prefill_32k"): Cut(batch=1, layers=4,
                                                 chunk=4096),
     # recsys: serve_bulk's 262,144 rows, retrieval_cand's 10^6
     ("dlrm-rm2", "serve_bulk"): Cut(batch=262_144, fit="batch"),
@@ -5705,6 +5740,9 @@ FAMILY_LR = 1e-3
 LAUNCHED_ARCHS = ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b", "nequip",
                   "sasrec", "xdeepfm")
 FAMILY_SEQ = 4096               # train_4k's sequence
+# (b)'s LMs at train_4k, each at its ONE_CARD_CUTS depth
+FULL_WIDTH_LMS = ("qwen2.5-14b", "yi-9b", "qwen2-moe-a2.7b",
+                  "qwen3-moe-235b-a22b")
 FULL_GRAPH_SM = (2708, 10556)   # full_graph_sm: Cora's nodes and edges
 
 
@@ -5764,13 +5802,29 @@ def allocated_peak(dev):
         out["bytes"] = float(live.peak)
 
 
-def dry_estimate(arch: str, shape: str, dev, cfg, specs) -> dict:
+def spec_shapes(specs) -> dict:
+    """Batch specs (meta tensors) as JSON: [shape, dtype] by key."""
+    return None if specs is None else {
+        k: [list(v.shape), str(v.dtype)] for k, v in specs.items()}
+
+
+def dry_estimate(arch: str, shape: str, dev, cfg, specs,
+                 fake: dict = None) -> dict:
     """``launch.dryrun.run_cell`` of ``arch``'s cell ``shape`` at ``cfg``
-    with the batch shapes ``specs``, on fakes of ``dev``: its record, its
-    estimate held to at most FIT_LIMIT."""
+    with the batch shapes ``specs``, on fakes of ``dev`` (or ``fake``, the
+    same record from :func:`fakes_write`, its config and batch shapes
+    held equal to these): its record, its estimate held to at most
+    FIT_LIMIT."""
     from repro_torch.launch.dryrun import run_cell
-    rec = run_cell(arch, shape, dev, cfg, specs=specs)
     what = f"the dry run of {arch}/{shape} at {cfg.name}"
+    if fake is None:
+        rec = run_cell(arch, shape, dev, cfg, specs=specs)
+    else:
+        rec = fake
+        check(rec.get("cfg") == repr(cfg)
+              and rec.get("specs") == spec_shapes(specs),
+              f"{what}: the fakes' record is of another config or batch "
+              f"({rec.get('cfg')}, {rec.get('specs')})")
     check(rec["ok"], f"{what}: {rec.get('traceback', '')}")
     check(rec["memory"]["peak_bytes"] <= FIT_LIMIT,
           f"{what}: estimated at {rec['memory']['peak_bytes']:.0f} B, over "
@@ -5853,27 +5907,85 @@ def graph_minibatch(parent: dict, seeds: int, fanouts, rng) -> tuple:
     return batch, 1e3 * (time.perf_counter() - t0)
 
 
+def lm_full_width(dev, archs=FULL_WIDTH_LMS, smoke: bool = False,
+                  seq: int = FAMILY_SEQ, lm_batch: int = None,
+                  chunk: int = None, fakes: dict = None) -> dict:
+    """Phase 22a (b) for the LMs: FAMILY_STEPS steps of each of ``archs``
+    (``smoke``: its smoke config) on one repeated batch at ``seq`` tokens
+    a sequence (remat), cut as ONE_CARD_CUTS says: its batch of sequences
+    (or ``lm_batch``), attention chunks (or ``chunk``) and depth (the dry
+    run's estimate at most FIT_LIMIT; the record in ``fakes`` where it
+    holds the cell), each held by :func:`full_width_train`; tokens/s and
+    two shares of the bf16 peak, and for an MoE config the dispatch's
+    counts: drop and overwrite shares, experts chosen and holding."""
+    from repro_torch.configs.lm_family import get_config
+    from repro_torch.data import synth
+    from repro_torch.launch.dryrun import batch_specs
+    out = {}
+    for arch in archs:
+        base = get_config(arch, smoke=smoke)
+        cut = ONE_CARD_CUTS[(arch, "train_4k")]
+        n_seq, ch = lm_batch or cut.batch, chunk or cut.chunk
+        layers = min(cut.layers, base.n_layers)
+        cfg = dataclasses.replace(base, n_layers=layers, remat=True,
+                                  attn_chunk_q=ch, attn_chunk_kv=ch)
+        tokens = next(synth.token_batches(SEED, cfg.vocab, n_seq, seq))
+        batch = {k: tokens[k] for k in ("tokens", "labels")}
+        est = dry_estimate(arch, "train_4k", dev, cfg, batch_specs(batch),
+                           (fakes or {}).get((arch, "train_4k")))
+        moe = cfg.moe is not None
+        with (dispatch_counts(dev) if moe
+              else contextlib.nullcontext()) as counts:
+            row = full_width_train(dev, arch, cfg, batch, est)
+        n_tok = n_seq * seq
+        steady = row["steady_step_ms"]
+        row.update(layers=layers, full_layers=base.n_layers,
+                   batch=n_seq, seq=seq, remat=cfg.remat, chunk=ch,
+                   dtype=cfg.dtype, tokens_per_s=1e3 * n_tok / steady,
+                   model_flops_per_step=lm_train_flops(cfg, n_tok, seq))
+        if moe:
+            n_routes, dropped, lost, chosen, held = (int(v) for v in counts)
+            # a layer and step each, twice under remat (the recompute)
+            dispatches = n_routes // (n_tok * cfg.moe.top_k)
+            row.update(dispatches=dispatches,
+                       dropped_share=dropped / n_routes,
+                       kept_overwritten_share=lost / max(
+                           n_routes - dropped, 1),
+                       experts_chosen=chosen / dispatches,
+                       experts_holding=held / dispatches)
+        # two counts of the step's work over the bf16 peak: the formula's
+        # (train_lm's, which counts the input embedding's lookups as
+        # products: most of a one-layer model's parameters) and the dry
+        # run's FlopCounter of this step (the matmuls that run, remat's
+        # recompute and the experts' capacity slots included)
+        row["model_flops_share_of_bf16_peak"] = (
+            row["model_flops_per_step"] / (steady / 1e3) / BF16_PEAK)
+        row["dryrun_flops_share_of_bf16_peak"] = (
+            row["dryrun_flops"] / (steady / 1e3) / BF16_PEAK)
+        out[arch] = row
+        emit("train_families_full", cell=f"{arch}/train_4k", **row)
+    return out
+
+
 def phase_train_families(dev, parent: dict, smoke: bool = False,
                          seq: int = FAMILY_SEQ, lm_batch: int = None,
                          chunk: int = None, seeds: int = GNN_SEEDS,
                          fanouts=GNN_FANOUTS, molecules=GNN_MOLECULES,
-                         full_graph=FULL_GRAPH_SM) -> dict:
+                         full_graph=FULL_GRAPH_SM, fakes: dict = None
+                         ) -> dict:
     """(a) Qwen2-MoE-A2.7B, Qwen3-MoE-235B-A22B and NequIP's two tasks at
     their smoke configs, FAMILY_STEPS card steps against host steps from
     the same weights and batches; ``launch.train.main`` on LAUNCHED_ARCHS,
     FAMILY_STEPS steps each, embedding_bag's launches counted; (b) at full
-    width (``smoke``: the MoE smoke configs), FAMILY_STEPS steps on one
-    repeated batch each: both MoE configs at ``seq`` tokens a sequence
-    (remat), cut as ONE_CARD_CUTS says: its batch of sequences (or
-    ``lm_batch``), attention chunks (or ``chunk``) and depth (the dry
-    run's estimate at most FIT_LIMIT),
-    and NequIP's minibatch_lg (sampled from ``parent``: phase gnn_serve's graph and
+    width, FAMILY_STEPS steps on one repeated batch each: the dense and
+    MoE LMs at train_4k's cuts (:func:`lm_full_width`; ``fakes`` holds
+    their dry runs where :func:`fakes_start` made them), and NequIP's
+    minibatch_lg (sampled from ``parent``: phase gnn_serve's graph and
     sampler), molecule (the force loss) and full_graph_sm."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.gnn_family import (NEQUIP, NEQUIP_SMOKE,
                                                 cfg_for_cell)
-    from repro_torch.configs.lm_family import get_config
     from repro_torch.data import synth
     from repro_torch.kernels.embedding_bag import kernel as bag_kernel
     from repro_torch.launch import train as launch_train
@@ -5925,43 +6037,10 @@ def phase_train_families(dev, parent: dict, smoke: bool = False,
         del tr
     emit("train_families_launcher", **out["launcher"])
 
-    # (b) full width: the MoE configs cut in depth to what the card holds
-    for arch in (MOE_ARCH, MOE3_ARCH):
-        base = get_config(arch, smoke=smoke)
-        cut = ONE_CARD_CUTS[(arch, "train_4k")]
-        n_seq, ch = lm_batch or cut.batch, chunk or cut.chunk
-        layers = min(cut.layers, base.n_layers)
-        cfg = dataclasses.replace(base, n_layers=layers, remat=True,
-                                  attn_chunk_q=ch, attn_chunk_kv=ch)
-        tokens = next(synth.token_batches(SEED, cfg.vocab, n_seq, seq))
-        batch = {k: tokens[k] for k in ("tokens", "labels")}
-        est = dry_estimate(arch, "train_4k", dev, cfg, batch_specs(batch))
-        with dispatch_counts(dev) as counts:
-            row = full_width_train(dev, arch, cfg, batch, est)
-        n_routes, dropped, lost, chosen, held = (int(v) for v in counts)
-        n_tok = n_seq * seq
-        # a layer and step each, twice under remat (the recompute)
-        dispatches = n_routes // (n_tok * cfg.moe.top_k)
-        steady = row["steady_step_ms"]
-        row.update(layers=layers, full_layers=base.n_layers,
-                   batch=n_seq, seq=seq, remat=cfg.remat, chunk=ch,
-                   dtype=cfg.dtype, tokens_per_s=1e3 * n_tok / steady,
-                   model_flops_per_step=lm_train_flops(cfg, n_tok, seq),
-                   dispatches=dispatches, dropped_share=dropped / n_routes,
-                   kept_overwritten_share=lost / max(n_routes - dropped, 1),
-                   experts_chosen=chosen / dispatches,
-                   experts_holding=held / dispatches)
-        # two counts of the step's work over the bf16 peak: the formula's
-        # (train_lm's, which counts the input embedding's lookups as
-        # products: most of a one-layer model's parameters) and the dry
-        # run's FlopCounter of this step (the matmuls that run, remat's
-        # recompute and the experts' capacity slots included)
-        row["model_flops_share_of_bf16_peak"] = (
-            row["model_flops_per_step"] / (steady / 1e3) / BF16_PEAK)
-        row["dryrun_flops_share_of_bf16_peak"] = (
-            row["dryrun_flops"] / (steady / 1e3) / BF16_PEAK)
-        out["full_width"][arch] = row
-        emit("train_families_full", cell=f"{arch}/train_4k", **row)
+    # (b) full width: the LMs cut in depth to what the card holds
+    out["full_width"].update(lm_full_width(dev, smoke=smoke, seq=seq,
+                                           lm_batch=lm_batch, chunk=chunk,
+                                           fakes=fakes))
 
     # NequIP at its full config on three cells
     rng = np.random.default_rng(SEED + 11)
@@ -6002,16 +6081,21 @@ DRYRUN_CELLS = {("internlm2-1.8b", "long_500k"): {"gqa_decode": 24},
                 ("yi-9b", "long_500k"): {"gqa_decode": 48},
                 ("dlrm-rm2", "serve_p99"): {"embedding_bag": 1},
                 ("nequip", "molecule"): {}}
-# and the registry's serve cells that one card holds (slice 13), each at
-# its ONE_CARD_CUTS cut: a decode step runs gqa_decode once a layer, a
+# and the registry's serve cells that one card holds (slices 13-14), each
+# at its ONE_CARD_CUTS cut: a decode step runs gqa_decode once a layer, a
 # recsys serve call embedding_bag once a lookup (phase 13's counts)
 SERVE_CELLS = {("internlm2-1.8b", "decode_32k"): {"gqa_decode": 24},
                ("yi-9b", "decode_32k"): {"gqa_decode": 48},
                ("qwen2.5-14b", "decode_32k"): {"gqa_decode": 48},
                ("qwen2-moe-a2.7b", "decode_32k"): {"gqa_decode": 24},
                ("qwen3-moe-235b-a22b", "decode_32k"): {"gqa_decode": 8},
+               ("qwen2.5-14b", "long_500k"): {"gqa_decode": 24},
+               ("qwen2-moe-a2.7b", "long_500k"): {"gqa_decode": 12},
+               ("qwen3-moe-235b-a22b", "long_500k"): {"gqa_decode": 11},
                ("internlm2-1.8b", "prefill_32k"): {},
                ("qwen2.5-14b", "prefill_32k"): {},
+               ("yi-9b", "prefill_32k"): {},
+               ("qwen2-moe-a2.7b", "prefill_32k"): {},
                ("qwen3-moe-235b-a22b", "prefill_32k"): {},
                ("dlrm-rm2", "serve_bulk"): {"embedding_bag": 1},
                ("xdeepfm", "serve_bulk"): {"embedding_bag": 2},
@@ -6095,15 +6179,24 @@ def cell_kind(arch: str, shape: str) -> str:
         else "decode"
 
 
+# the dry runs phase 22a (b) takes from the fakes' subprocess (a dense
+# train step traces for tens of seconds on the fakes)
+TRAIN_FAKES = [(arch, "train_4k") for arch in FULL_WIDTH_LMS]
+
+
 def fakes_write(device: str, path: str, cells=SERVE_CELLS) -> None:
     """Each of ``cells``' dry runs on fakes of ``device`` at its
     ONE_CARD_CUTS cut, one JSON line each in ``path`` (what
-    :func:`fakes_start`'s subprocess runs)."""
+    :func:`fakes_start`'s subprocess runs), with the config and batch
+    shapes it ran (:func:`dry_estimate` holds them to a run's)."""
     from repro_torch.launch.dryrun import run_cell
+    t0 = time.perf_counter()
     with open(path, "a") as fh:
         for arch, shape in cells:
             cfg, specs = cut_cell(arch, shape)
             rec = run_cell(arch, shape, device, cfg, specs=specs)
+            rec.update(cfg=repr(cfg), specs=spec_shapes(specs),
+                       written_at_s=time.perf_counter() - t0)
             fh.write(json.dumps(rec) + "\n")
             fh.flush()
 
@@ -6131,25 +6224,47 @@ def fakes_start(dev, cells=SERVE_CELLS):
     return proc, tmp, path, cells, time.perf_counter()
 
 
-def fakes_collect(started, timeout: float = 600) -> dict:
-    """{(arch, shape): record} of :func:`fakes_start`'s subprocess."""
-    proc, tmp, path, cells, t0 = started
+def fakes_read(path: str) -> dict:
+    """{(arch, shape): record} of the lines :func:`fakes_write` has ended
+    in ``path`` so far."""
+    if not os.path.exists(path):
+        return {}
+    with open(path) as fh:
+        recs = [json.loads(line) for line in fh if line.endswith("\n")]
+    return {(r["arch"], r["shape"]): r for r in recs}
+
+
+def fakes_collect(started, cells=None, timeout: float = 600) -> dict:
+    """{(arch, shape): record} of :func:`fakes_start`'s subprocess once it
+    has ended; given ``cells``, of those cells as soon as it has written
+    them (it runs on)."""
+    proc, tmp, path, all_cells, t0 = started
+    if cells is not None:
+        deadline = time.perf_counter() + timeout
+        while True:
+            recs = fakes_read(path)
+            if all(c in recs for c in cells) or proc.poll() is not None \
+                    or time.perf_counter() > deadline:
+                break
+            time.sleep(0.5)
+        missing = [c for c in cells if c not in recs]
+        check(not missing, f"the fakes' subprocess has not written "
+                           f"{missing} (exit {proc.poll()})")
+        return {c: recs[c] for c in cells}
     with tmp:
         try:
             _, err = proc.communicate(timeout=timeout)
         finally:
             _kill(proc)
-        recs = []
-        if os.path.exists(path):
-            with open(path) as fh:
-                recs = [json.loads(line) for line in fh]
-    check(proc.returncode == 0 and len(recs) == len(cells),
-          f"the fakes' subprocess wrote {len(recs)} of {len(cells)} "
+        recs = fakes_read(path)
+    check(proc.returncode == 0 and len(recs) == len(all_cells),
+          f"the fakes' subprocess wrote {len(recs)} of {len(all_cells)} "
           f"records: {err[-2000:]}")
     emit("dryrun_fakes", seconds=time.perf_counter() - t0,
-         trace_s={f"{r['arch']}/{r['shape']}": r.get("trace_s")
-                  for r in recs})
-    return {(r["arch"], r["shape"]): r for r in recs}
+         written_at_s=max(r["written_at_s"] for r in recs.values()),
+         trace_s={f"{a}/{s}": r.get("trace_s")
+                  for (a, s), r in recs.items()})
+    return recs
 
 
 def all_finite(t) -> bool:
@@ -6493,8 +6608,10 @@ def main() -> int:
     # a subprocess on its own host core from here on (its five cells take
     # 150 s there); phase dist collects it
     dist_dry = dist_dryrun_start(dev)
-    # so do the serve cells' dry runs on the card's fakes (phase 23)
-    serve_fakes = fakes_start(dev)
+    # so do the LMs' train_4k dry runs (phase 22a (b)) and phase 23's on
+    # the card's fakes
+    serve_fakes = fakes_start(dev, TRAIN_FAKES + list(SERVE_CELLS)
+                              + list(DRYRUN_CELLS))
     phase_s = {}
 
     def timed(name, fn, *args, **kwargs):
@@ -6540,11 +6657,14 @@ def main() -> int:
     timed("gnn_small", phase_gnn_small, dev)
     gnn = timed("gnn_serve", phase_gnn_serve, dev)
     timed("train_families", phase_train_families, dev,
-          parent=gnn.pop("parent"))
+          parent=gnn.pop("parent"),
+          fakes=fakes_collect(serve_fakes, TRAIN_FAKES))
     del gnn
-    dry = timed("dryrun", phase_dryrun, dev, bw=bw, flops=flops)
+    fakes = fakes_collect(serve_fakes)
+    dry = timed("dryrun", phase_dryrun, dev, fakes=fakes, bw=bw,
+                flops=flops)
     dry.update(timed("serve_cells", phase_dryrun, dev, SERVE_CELLS,
-                     fakes=fakes_collect(serve_fakes), bw=bw, flops=flops))
+                     fakes=fakes, bw=bw, flops=flops))
     timed("dispatch", dispatch_cost, dev)
     dist = timed("dist", phase_dist, dev, dry=dist_dry)
     emit("done", seconds=time.perf_counter() - t_start, phase_s=phase_s)
@@ -6612,7 +6732,8 @@ def main() -> int:
         "max_abs_err": max(decode_err, dist["gqa"]["max_abs_err"],
                            *(deploy[c]["max_abs_err"]
                              for c in ("32k", "500k", "32k_g1",
-                                       "32k_g16", "500k_g8")),
+                                       "32k_g16", "500k_g8", "500k_g1",
+                                       "500k_g16")),
                            *(r["kernel_max_abs_err"] for r in dry.values()
                              if "kernel_max_abs_err" in r)),
         "cells": {c: {k: r[k] for k in ("kernel_shape", "kernel_g",
@@ -6631,7 +6752,8 @@ def main() -> int:
         **{case: {k: deploy[case][k] for k in (
             "shape", "g", "kernel_ms", "plain_ms", "fma_ms", "library_ms",
             "bound_ms", "bound_by")} for case in ("32k_g1", "32k_g16",
-                                                   "500k_g8")},
+                                                   "500k_g8", "500k_g1",
+                                                   "500k_g16")},
     }, {
         "name": "embedding_bag", "route": "cuda",
         "source": "src/repro_torch/csrc/embedding_bag.cu",

@@ -103,7 +103,8 @@ def _smoke_cells():
     phase's logit check needs a bfloat16 forward beside the float32 one),
     each decode cell's gqa_decode calls a layer of the smoke depth, the
     recsys cells' as on the card; batches of 2 sequences, 1 prompt of 64
-    tokens in chunks of 16 and 64 rows."""
+    tokens in chunks of 16 and 64 rows (the test patches the shapes'
+    prefill and long_500k sequences to SMOKE_SEQ)."""
     cells, configs, cuts = {}, {}, {}
     for (arch, shape), want in C.SERVE_CELLS.items():
         spec = get_arch(arch)
@@ -125,6 +126,9 @@ def _smoke_cells():
     return cells, configs, cuts
 
 
+SMOKE_SEQ = {"prefill_32k": 64, "long_500k": 4096}
+
+
 def test_serve_cells_phase_on_the_cpu(monkeypatch):
     """Every serve cell through phase ``dryrun`` on the host: the real
     step's tracked peak and FLOPs equal the fakes', each decode's estimate
@@ -134,7 +138,8 @@ def test_serve_cells_phase_on_the_cpu(monkeypatch):
     unblocked one (an fp8-weight prefill refused), the recsys rows
     against the host."""
     counted_run_cell(monkeypatch)
-    monkeypatch.setitem(TF.SHAPES["prefill_32k"], "seq", 64)
+    for shape, seq in SMOKE_SEQ.items():
+        monkeypatch.setitem(TF.SHAPES[shape], "seq", seq)
     monkeypatch.setattr(C, "PREFILL_CHECK", 128)
     # the smoke caches are far under the 256 MiB floor: 5 % alone
     monkeypatch.setattr(C, "DRYRUN_FLOOR", 0)
@@ -153,7 +158,9 @@ def test_serve_cells_phase_on_the_cpu(monkeypatch):
         assert all(i["finite"] for i in row["inspected"])
         if row["kind"] == "decode":
             assert row["without_cache_refused"]
-            assert row["kernel_shape"][:2] == [2, 32_768]
+            assert row["kernel_shape"][:2] == [
+                2, TF.SHAPES[shape]["seq"]]
+            assert row["kernel_g"] == configs[arch].group_size
         elif row["kind"] == "prefill":
             check = row["prefill_check"]
             assert check["holds"] and check["fp8_refused"]
@@ -162,6 +169,9 @@ def test_serve_cells_phase_on_the_cpu(monkeypatch):
             host = row["inspected"][0]["host"]
             assert host["ok"] and host["rows"] == 64
     assert out["qwen3-moe-235b-a22b/decode_32k"]["config"]["n_layers"] == 2
+    assert {s for _, s in C.SERVE_CELLS} == {
+        "decode_32k", "long_500k", "prefill_32k", "serve_bulk",
+        "retrieval_cand"}
 
 
 def test_serve_cells_phase_refuses_a_wrong_launch_count(monkeypatch):
@@ -265,7 +275,15 @@ def test_bulk_serve_matches_jax(name, shape):
 # --------------------------------------------------------------------- #
 # the cut table's fit rule on CPU fakes at full width
 # --------------------------------------------------------------------- #
-FIT_ENTRIES = [key for key, cut in C.ONE_CARD_CUTS.items() if cut.fit]
+def is_train(arch: str, shape: str) -> bool:
+    spec = get_arch(arch)
+    return spec.cells(spec.config)[shape].kind == "train"
+
+
+# the serve cells' entries; the train cells' (tens of seconds a depth
+# here) are in test_torch_onecard_train.py
+FIT_ENTRIES = [key for key, cut in C.ONE_CARD_CUTS.items()
+               if cut.fit and not is_train(*key)]
 
 
 @pytest.mark.parametrize("arch,shape", FIT_ENTRIES,

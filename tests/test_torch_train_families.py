@@ -48,7 +48,7 @@ def _parent(n: int = 3_000, e: int = 150_000) -> dict:
 
 
 def test_chip_smoke_train_families_on_the_cpu():
-    """The phase at the MoE smoke configs (2 sequences of 64 tokens) and
+    """The phase at the LMs' smoke configs (2 sequences of 64 tokens) and
     NequIP's full config on small graphs: every check holds, the MoE
     dispatch runs twice a layer and step (remat), the launcher trains each
     arch 3 steps, and each full-width run's estimate is its tracked peak's
@@ -64,9 +64,9 @@ def test_chip_smoke_train_families_on_the_cpu():
         assert row["steps"] == chip_smoke.FAMILY_STEPS
         assert row["launches"] == (0, 0)           # no kernel on the host
     full = out["full_width"]
-    assert set(full) == {"qwen2-moe-a2.7b", "qwen3-moe-235b-a22b",
-                         "nequip/minibatch_lg", "nequip/molecule",
-                         "nequip/full_graph_sm"}
+    assert set(full) == {"qwen2.5-14b", "yi-9b", "qwen2-moe-a2.7b",
+                         "qwen3-moe-235b-a22b", "nequip/minibatch_lg",
+                         "nequip/molecule", "nequip/full_graph_sm"}
     for arch in ("qwen2-moe-a2.7b", "qwen3-moe-235b-a22b"):
         row = full[arch]
         assert row["full_layers"] == 2

@@ -1,8 +1,9 @@
 """N steps of the port's ``Trainer`` against N steps of
 ``repro.train.trainer.Trainer`` from the same converted init on the same
-batches: the LM smoke config, both MoE smoke configs and the four recsys
-smoke configs; and the trainer's prefetch (skip-and-backfill), checkpoint cadence and the data
-state it carries.
+batches: the dense LM smoke configs (InternLM2-1.8B; Qwen2.5-14B with its
+q/k/v biases; Yi-9B with its rope θ of 10^4), both MoE smoke configs and
+the four recsys smoke configs; and the trainer's prefetch
+(skip-and-backfill), checkpoint cadence and the data state it carries.
 
 Tolerance: the reference's trainer run twice, in float32 and with its
 weights widened to float64 under ``jax.enable_x64`` (its optimizer stays
@@ -89,7 +90,8 @@ def _ref_run(spec, params, batches):
     return [np.asarray(x, np.float64) for x in jax.tree.leaves(t.params)]
 
 
-@pytest.mark.parametrize("name", ["internlm2-1.8b", "qwen2-moe-a2.7b",
+@pytest.mark.parametrize("name", ["internlm2-1.8b", "qwen2.5-14b", "yi-9b",
+                                  "qwen2-moe-a2.7b",
                                   "qwen3-moe-235b-a22b", "dlrm-rm2",
                                   "xdeepfm", "two-tower-retrieval",
                                   "sasrec"])
