@@ -49,7 +49,10 @@ from the seed, inputs drawn in range from it, a decode cache at
 built, and the same FLOP counter, so a real step can be held to its
 estimate.  A real run may call the step again (``calls``: each call's
 host seconds, synchronised, in ``call_s``; memory and FLOPs stay the
-first call's) and look at each call's output (``inspect``).
+first call's) and look at each call's output (``inspect``).  Either way
+the step runs with ``repro_torch.obs`` off (:func:`obs_off`), so the
+model's spans and MoE counters add no tensors of their own and a fake
+step and a real one make the same.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
@@ -81,6 +84,7 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor.debug import CommDebugMode
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch import obs
 from repro_torch.dist import sharding as shd
 from repro_torch.dist.on_mesh import local_part, replicated_implicitly
 
@@ -189,6 +193,18 @@ class Collectives(CommDebugMode):
             st["bytes"] += float(sum(t.numel() * t.element_size()
                                      for t in _tensors(out)))
         return out
+
+
+@contextlib.contextmanager
+def obs_off():
+    """Metrics and tracing off inside, each as it was after."""
+    reg, tr = obs.registry(), obs.tracer()
+    was = reg.enabled, tr.enabled
+    obs.disable()
+    try:
+        yield
+    finally:
+        reg.enabled, tr.enabled = was
 
 
 @contextlib.contextmanager
@@ -480,7 +496,7 @@ def run_cell(arch_name: str, shape_name: str, device="cuda", cfg=None,
             on_mesh.enter_context(replicated_implicitly())
             on_mesh.enter_context(shadow_ops_hidden())
         allocator = seed is not None and dev.type == "cuda"
-        with mode:
+        with obs_off(), mode:
             with live:
                 if allocator:
                     torch.cuda.synchronize(dev)

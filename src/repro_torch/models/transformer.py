@@ -17,6 +17,14 @@ copies leaves without a transpose.  Parameters are made without gradients
 backward (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``),
 and ``attn_chunk_q`` / ``attn_chunk_kv`` run the blocked attention.
 
+Each :func:`decode_step` and :func:`prefill` call is one trace of
+``repro_torch.obs`` spans while tracing is on (``lm.decode_step`` or
+``lm.prefill``, and in each layer ``lm.attention``, ``lm.gqa_decode`` in
+decode, ``lm.mlp`` or ``lm.moe`` with ``lm.moe.dispatch``), and
+:data:`MOE_COUNTS` sums the MoE counters on the device while the registry
+is on; ``repro_torch.obs.timeline`` puts device time and device idle time
+down to the spans.
+
 Where a line-by-line port goes wrong, and what this one does:
 
 - the KV write at ``length`` drops rows whose ``length >= S`` (JAX
@@ -48,6 +56,7 @@ Where a line-by-line port goes wrong, and what this one does:
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -56,6 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.core.vectorized import stable_topk
 from repro_torch.dist.on_mesh import (add_settled, grad_like, is_dtensor,
                                       keep_shards, local_range, logits_layout,
@@ -346,6 +356,66 @@ def moe_dispatch(probs: torch.Tensor, m: MoEConfig,
     return top_p, top_e, pos, keep, idx_buf
 
 
+class MoECounts:
+    """The MoE counters of every :func:`moe_block` call while the
+    registry is enabled (a remat backward's recompute counts again):
+    assignments kept and dropped, kept assignments lost to a dropped
+    winner of their slot (fault (t)), and expert slots computed (E·C).
+    Kept assignments and slots with a kept winner are summed on the
+    device the call ran on, without a sync; :meth:`flush` reads them with
+    one sync a device and adds all four to the registry's counters."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._sums: Dict[torch.device, torch.Tensor] = {}  # [kept, won]
+        self._assignments = 0
+        self._slots = 0
+
+    def add(self, keep: torch.Tensor, idx_buf: torch.Tensor, t: int
+            ) -> None:
+        """One call's ``keep`` [T, K] and ``idx_buf`` [E, C] (sentinel
+        ``t``) from :func:`moe_dispatch`."""
+        if is_dtensor(keep):        # replicated: the whole on every rank
+            keep, idx_buf = keep.to_local(), idx_buf.to_local()
+        both = torch.stack((keep.sum(), (idx_buf < t).sum()))
+        with self._lock:
+            acc = self._sums.get(both.device)
+            if acc is None:
+                self._sums[both.device] = both
+            else:
+                acc.add_(both)
+            self._assignments += keep.numel()
+            self._slots += idx_buf.numel()
+
+    def flush(self) -> Dict[str, int]:
+        """The counts since the last flush, added to the registry's
+        counters (one host sync a device that holds sums).  The registry
+        calls it before each export, so ``/metrics`` and a snapshot at
+        the end of a window carry the counts up to that point."""
+        with self._lock:
+            sums, self._sums = self._sums, {}
+            assignments, self._assignments = self._assignments, 0
+            slots, self._slots = self._slots, 0
+        kept = won = 0
+        for acc in sums.values():
+            k, w = acc.tolist()
+            kept, won = kept + k, won + w
+        out = {"kept": kept, "dropped": assignments - kept,
+               "lost": kept - won, "slots": slots}
+        if not slots:       # no MoE call since the last flush
+            return out
+        reg = obs.registry()
+        reg.counter("lm_moe_assignments_kept_total").inc(out["kept"])
+        reg.counter("lm_moe_assignments_dropped_total").inc(out["dropped"])
+        reg.counter("lm_moe_kept_lost_total").inc(out["lost"])
+        reg.counter("lm_moe_slots_total").inc(out["slots"])
+        return out
+
+
+MOE_COUNTS = MoECounts()
+obs.registry().add_collector(MOE_COUNTS.flush)
+
+
 def moe_block(x: torch.Tensor, lp: Mapping[str, torch.Tensor],
               cfg: TransformerConfig) -> torch.Tensor:
     """x [T, D] (token-major) → [T, D], the reference's ``moe_block``.
@@ -358,18 +428,21 @@ def moe_block(x: torch.Tensor, lp: Mapping[str, torch.Tensor],
     (qwen2-moe) is gated by a float32 sigmoid."""
     m = cfg.moe
     t, d = x.shape
-    # on DTensors each use of x takes its own grad_like: the gradients of
-    # the router, the experts and the shared expert come back placed as x
-    # is before autograd adds them (DTensor's add of a pending sum and a
-    # cut may ask to turn the cut into a pending sum, which some versions
-    # cannot do); a no-op on plain tensors
-    probs = torch.softmax(torch.matmul(grad_like(x).float(),
-                                       lp["router"].float()), dim=-1)
-    if is_dtensor(probs):    # integer work on [T, E]: whole on every rank
-        top_p, top_e, pos, keep, idx_buf = replicated_local(
-            lambda pr: moe_dispatch(pr, m), 5, probs)
-    else:
-        top_p, top_e, pos, keep, idx_buf = moe_dispatch(probs, m)
+    with obs.span("lm.moe.dispatch"):
+        # on DTensors each use of x takes its own grad_like: the gradients
+        # of the router, the experts and the shared expert come back
+        # placed as x is before autograd adds them (DTensor's add of a
+        # pending sum and a cut may ask to turn the cut into a pending
+        # sum, which some versions cannot do); a no-op on plain tensors
+        probs = torch.softmax(torch.matmul(grad_like(x).float(),
+                                           lp["router"].float()), dim=-1)
+        if is_dtensor(probs):  # integer work on [T, E]: whole on every rank
+            top_p, top_e, pos, keep, idx_buf = replicated_local(
+                lambda pr: moe_dispatch(pr, m), 5, probs)
+        else:
+            top_p, top_e, pos, keep, idx_buf = moe_dispatch(probs, m)
+        if obs.registry().enabled:
+            MOE_COUNTS.add(keep, idx_buf, t)
     c = idx_buf.shape[1]
     xe = torch.cat([grad_like(x), x.new_zeros((1, d))])[idx_buf]  # [E, C, D]
     if cfg.moe_shard == "all":
@@ -409,12 +482,15 @@ def _constrain(x: torch.Tensor, spec) -> torch.Tensor:
 def _mlp(cfg: TransformerConfig, x: torch.Tensor,
          lp: Mapping[str, torch.Tensor]) -> torch.Tensor:
     x = keep_shards(x, (0,))     # on DTensors: see _layer
-    xn = rms_norm(x, lp["mlp_norm"])
     if cfg.moe is None:
-        return x + swiglu(xn, lp["w_gate"], lp["w_up"], lp["w_down"])
-    b, s, d = xn.shape
-    return add_settled(x, moe_block(xn.reshape(b * s, d), lp, cfg
-                                    ).reshape(b, s, d))
+        with obs.span("lm.mlp"):
+            return x + swiglu(rms_norm(x, lp["mlp_norm"]), lp["w_gate"],
+                              lp["w_up"], lp["w_down"])
+    with obs.span("lm.moe"):
+        xn = rms_norm(x, lp["mlp_norm"])
+        b, s, d = xn.shape
+        return add_settled(x, moe_block(xn.reshape(b * s, d), lp, cfg
+                                        ).reshape(b, s, d))
 
 
 def _layer(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
@@ -425,24 +501,26 @@ def _layer(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
     # multiply
     x = keep_shards(x, (0,))
     b, s, _ = x.shape
-    q, k, v = _qkv(cfg, lp, rms_norm(x, lp["attn_norm"]))
-    q = apply_rope(q.reshape(b, s, -1, cfg.head_dim), cos, sin
-                   ).reshape(q.shape)
-    k = apply_rope(k, cos, sin)
-    if cfg.attn_chunk_q and s > cfg.attn_chunk_q:
-        q_chunk = min(cfg.attn_chunk_q, s)
-        kv_chunk = min(cfg.attn_chunk_kv or cfg.attn_chunk_q, s)
-        if s % q_chunk or s % kv_chunk:
-            raise ValueError(f"sequence {s} is not a multiple of the "
-                             f"attention chunks ({q_chunk}, {kv_chunk})")
-        attn = chunked_causal_gqa_attention(q, k, v, q_chunk=q_chunk,
-                                            kv_chunk=kv_chunk)
-    else:
-        attn = causal_gqa_attention(q, k, v)
-    # on DTensors the heads' gradient comes back placed as the flat heads
-    # are, so the flatten's backward can split it again
-    attn = grad_like(attn.reshape(b, s, -1))
-    return _mlp(cfg, add_settled(x, torch.matmul(attn, lp["wo"])), lp)
+    with obs.span("lm.attention"):
+        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["attn_norm"]))
+        q = apply_rope(q.reshape(b, s, -1, cfg.head_dim), cos, sin
+                       ).reshape(q.shape)
+        k = apply_rope(k, cos, sin)
+        if cfg.attn_chunk_q and s > cfg.attn_chunk_q:
+            q_chunk = min(cfg.attn_chunk_q, s)
+            kv_chunk = min(cfg.attn_chunk_kv or cfg.attn_chunk_q, s)
+            if s % q_chunk or s % kv_chunk:
+                raise ValueError(f"sequence {s} is not a multiple of the "
+                                 f"attention chunks ({q_chunk}, {kv_chunk})")
+            attn = chunked_causal_gqa_attention(q, k, v, q_chunk=q_chunk,
+                                                kv_chunk=kv_chunk)
+        else:
+            attn = causal_gqa_attention(q, k, v)
+        # on DTensors the heads' gradient comes back placed as the flat
+        # heads are, so the flatten's backward can split it again
+        attn = grad_like(attn.reshape(b, s, -1))
+        x = add_settled(x, torch.matmul(attn, lp["wo"]))
+    return _mlp(cfg, x, lp)
 
 
 def _layer_remat(cfg: TransformerConfig, cos, sin, x: torch.Tensor,
@@ -492,7 +570,8 @@ def loss_fn(model: Transformer, batch) -> torch.Tensor:
 @torch.no_grad()
 def prefill(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     """Prefill forward (logits only)."""
-    return forward(model, tokens)
+    with obs.span("lm.prefill"):
+        return forward(model, tokens)
 
 
 # --------------------------------------------------------------------- #
@@ -572,6 +651,15 @@ def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
     a cache of that dtype), every weight is widened to it just before use,
     one layer at a time, as :func:`forward` does; serving never passes it.
     """
+    with obs.span("lm.decode_step"):
+        logits = _decode_logits(model, cache, tokens, dtype)
+    return logits, cache
+
+
+def _decode_logits(model: Transformer, cache: Dict[str, torch.Tensor],
+                   tokens: torch.Tensor, dtype: Optional[torch.dtype]
+                   ) -> torch.Tensor:
+    """:func:`decode_step`'s body: the logits [B, V], the cache updated."""
     cfg = model.cfg
     b = tokens.shape[0]
     length = cache["length"]
@@ -591,22 +679,26 @@ def decode_step(model: Transformer, cache: Dict[str, torch.Tensor],
         x = x.to(dtype)
     for li, layer in enumerate(model.layers):
         lp = layer.tensors(dtype)
-        q, k, v = _qkv(cfg, lp, rms_norm(x, lp["attn_norm"]))
-        q = rope_rotate(q.reshape(b, 1, -1, cfg.head_dim), c, sn
-                        ).reshape(q.shape)
-        k = rope_rotate(k, c, sn)
-        k_cache, v_cache = cache["k"][li], cache["v"][li]
-        for kv, new in ((k_cache, k), (v_cache, v)):
-            if on_mesh:
-                _write_kv_on_mesh(kv, new.reshape(b, -1), length)
-            else:
-                _write_rows(kv, new.reshape(b, -1), row, mine)
-        attn = gqa_kernel.gqa_decode(q[:, 0], k_cache, v_cache, attend)
-        x = _mlp(cfg, add_settled(
-            x, torch.matmul(attn.reshape(b, 1, -1), lp["wo"])), lp)
+        with obs.span("lm.attention"):
+            q, k, v = _qkv(cfg, lp, rms_norm(x, lp["attn_norm"]))
+            q = rope_rotate(q.reshape(b, 1, -1, cfg.head_dim), c, sn
+                            ).reshape(q.shape)
+            k = rope_rotate(k, c, sn)
+            k_cache, v_cache = cache["k"][li], cache["v"][li]
+            for kv, new in ((k_cache, k), (v_cache, v)):
+                if on_mesh:
+                    _write_kv_on_mesh(kv, new.reshape(b, -1), length)
+                else:
+                    _write_rows(kv, new.reshape(b, -1), row, mine)
+            with obs.span("lm.gqa_decode"):
+                attn = gqa_kernel.gqa_decode(q[:, 0], k_cache, v_cache,
+                                             attend)
+            x = add_settled(x, torch.matmul(attn.reshape(b, 1, -1),
+                                            lp["wo"]))
+        x = _mlp(cfg, x, lp)
     norm, head = model.final_norm, model.lm_head
     if dtype is not None:
         norm, head = norm.to(dtype), head.to(dtype)
     logits = logits_layout(torch.matmul(rms_norm(x, norm), head))
     length.add_(1)
-    return logits[:, 0], cache
+    return logits[:, 0]

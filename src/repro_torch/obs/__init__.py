@@ -3,15 +3,14 @@
 Stdlib-only (no jax/numpy), so every subsystem — core, dist, tiered,
 train — can import it without cycles or optional-dependency gates.
 
-Three layers:
+Two layers:
 
 * metrics: thread-safe Counter / Gauge / log-bucketed Histogram in a
   process-global :func:`registry` of labeled families, exported as a
   plain-dict snapshot, JSONL lines, or Prometheus text.
 * tracing: contextvar-propagated :func:`span` trees with a ring buffer
-  and slow-trace JSONL dump (see :mod:`repro_torch.obs.trace`).
-* bench: schema-versioned ``BENCH_*.json`` emission + validation — the
-  persisted perf trajectory (see :mod:`repro_torch.obs.bench`).
+  and slow-trace JSONL dump (see :mod:`repro_torch.obs.trace`), on a clock
+  that :mod:`repro_torch.obs.timeline` ties to a device trace's.
 
 Plus the live introspection plane on top: continuous profiling and lock
 contention (:mod:`repro_torch.obs.profile`), declared SLOs with multi-window
@@ -26,9 +25,6 @@ Disable everything (both planes drop to ~100 ns no-ops) with
 from .metrics import Counter, Gauge, Histogram
 from .registry import JsonlSink, MetricsRegistry, registry, sanitize
 from .trace import Span, Tracer, span, tracer
-from .bench import SCHEMA as BENCH_SCHEMA
-from .bench import emit as emit_bench
-from .bench import validate as validate_bench
 from .rotate import RotatingJsonl
 from .profile import ProfiledLock, SamplingProfiler, phase_timer, profile_for
 from .slo import SLO, SLOMonitor, SLOSignalSource, default_slos
@@ -55,7 +51,6 @@ __all__ = [
     "Counter", "Gauge", "Histogram",
     "JsonlSink", "MetricsRegistry", "registry", "sanitize",
     "Span", "Tracer", "span", "tracer",
-    "BENCH_SCHEMA", "emit_bench", "validate_bench",
     "RotatingJsonl",
     "ProfiledLock", "SamplingProfiler", "phase_timer", "profile_for",
     "SLO", "SLOMonitor", "SLOSignalSource", "default_slos",

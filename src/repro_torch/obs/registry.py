@@ -11,8 +11,7 @@ sites call ``registry().counter("x", group=g)`` freely; the same
 Exporters:
 
 * ``JsonlSink`` appends one ``{"ts": ..., "metrics": snapshot}`` line per
-  ``write()`` — the persisted perf-trajectory form consumed by
-  ``BENCH_*.json`` emission and ``--metrics-dump``.
+  ``write()`` — the persisted perf-trajectory form.
 * ``to_prometheus()`` renders the text exposition format 0.0.4
   (histograms as cumulative ``_bucket{le=...}`` series plus
   ``_sum``/``_count``), for scraping or eyeballing.
@@ -20,6 +19,11 @@ Exporters:
 ``enabled`` gates every child metric's mutators (see
 :mod:`repro_torch.obs.metrics`): disabling the registry turns the whole
 instrumentation sweep into ~100 ns no-ops without unhooking anything.
+
+A source that keeps its counts elsewhere (the MoE counters sum on the
+device, ``models.transformer.MOE_COUNTS``) registers a collector with
+:meth:`MetricsRegistry.add_collector`: both exporters call it first, so
+it adds its counts to its counters only when the registry is read.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import json
 import math
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from .metrics import Counter, Gauge, Histogram
 
@@ -61,6 +65,7 @@ class MetricsRegistry:
         self.enabled = enabled
         self._lock = threading.Lock()
         self._families: Dict[str, _Family] = {}
+        self._collectors: List[Callable[[], object]] = []
 
     # -- lifecycle -------------------------------------------------------- #
     def _enable_impl(self) -> None:
@@ -109,8 +114,23 @@ class MetricsRegistry:
                             lo=lo, hi=hi, per_decade=per_decade)
 
     # -- export ------------------------------------------------------------ #
+    def add_collector(self, fn: Callable[[], object]) -> None:
+        """Call ``fn()`` (once, however often it is added) before every
+        :meth:`snapshot` and :meth:`to_prometheus`, outside the registry's
+        lock, so that it can bring its counters up to date."""
+        with self._lock:
+            if fn not in self._collectors:
+                self._collectors.append(fn)
+
+    def _collect(self) -> None:
+        with self._lock:
+            fns = list(self._collectors)
+        for fn in fns:
+            fn()
+
     def snapshot(self) -> dict:
         """Plain-dict view of every family: name → {type, help, series}."""
+        self._collect()
         with self._lock:
             fams = list(self._families.items())
         out = {}
@@ -159,6 +179,7 @@ class MetricsRegistry:
                 return "NaN"
             return repr(float(v)) if isinstance(v, float) else str(v)
 
+        self._collect()
         with self._lock:
             fams = [(name, fam.kind, fam.help, sorted(fam.children.items()))
                     for name, fam in sorted(self._families.items())]

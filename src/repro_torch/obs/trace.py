@@ -22,6 +22,11 @@ appended as JSON lines to the slow-trace sink — the "what was that p99
 spike" artifact.  Span bodies run under ``with``, so an exception closes
 the span (flagged ``error``) and still propagates.
 
+A span records its start and end as integer nanoseconds of one clock,
+:func:`now_ns` (``time.perf_counter_ns``); ``start_ts`` (seconds since the
+epoch) and ``duration_ms`` are derived from the two readings.  The clock
+is tied to a device trace's by :mod:`repro_torch.obs.timeline`.
+
 Disabled mode returns a shared no-op context manager: one attribute check
 and no allocation per ``span()`` call.
 """
@@ -47,6 +52,10 @@ from .rotate import RotatingJsonl
 _CURRENT: "contextvars.ContextVar[Optional[Span]]" = contextvars.ContextVar(
     "repro_obs_span", default=None)
 
+now_ns = time.perf_counter_ns     # the span clock
+# the epoch's offset on the span clock, read once: start_ts derives from it
+_EPOCH_NS = time.time_ns() - now_ns()
+
 _ids = itertools.count(1)
 _ids_lock = threading.Lock()
 
@@ -60,7 +69,7 @@ class Span:
     """One timed, labeled stage of a trace."""
 
     __slots__ = ("name", "labels", "trace_id", "span_id", "parent_id",
-                 "start_ts", "_t0", "duration_s", "error", "_trace")
+                 "start_ns", "end_ns", "error", "_trace")
 
     def __init__(self, name: str, labels: Dict[str, object],
                  trace: "_Trace", parent: Optional["Span"]):
@@ -69,15 +78,25 @@ class Span:
         self.trace_id = trace.trace_id
         self.span_id = _next_id()
         self.parent_id = parent.span_id if parent is not None else None
-        self.start_ts = time.time()
-        self._t0 = time.perf_counter()
-        self.duration_s: Optional[float] = None
+        self.start_ns = now_ns()
+        self.end_ns: Optional[int] = None
         self.error = False
         self._trace = trace
 
     @property
+    def start_ts(self) -> float:
+        """The start in seconds since the epoch."""
+        return (self.start_ns + _EPOCH_NS) / 1e9
+
+    @property
+    def duration_s(self) -> Optional[float]:
+        return None if self.end_ns is None else \
+            (self.end_ns - self.start_ns) / 1e9
+
+    @property
     def duration_ms(self) -> Optional[float]:
-        return None if self.duration_s is None else 1e3 * self.duration_s
+        return None if self.end_ns is None else \
+            (self.end_ns - self.start_ns) / 1e6
 
     def to_record(self) -> dict:
         return {"name": self.name, "labels": dict(self.labels),
@@ -113,7 +132,7 @@ class _Trace:
 
         def node(s: Span) -> dict:
             kids = sorted(children.get(s.span_id, ()),
-                          key=lambda c: c.start_ts)
+                          key=lambda c: c.start_ns)
             return {"name": s.name, "labels": dict(s.labels),
                     "duration_ms": s.duration_ms, "error": s.error,
                     "children": [node(c) for c in kids]}
@@ -171,7 +190,7 @@ class _SpanCtx:
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         span = self._span
-        span.duration_s = time.perf_counter() - span._t0
+        span.end_ns = now_ns()
         span.error = exc_type is not None
         if exc_type is not None:
             # label the span with the exception type so errored spans are

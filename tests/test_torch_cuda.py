@@ -10,6 +10,7 @@ machine with PyTorch alone.
 import ctypes
 import os
 import sys
+import time
 from pathlib import Path
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -375,6 +376,104 @@ def test_decode_step_on_card_runs_the_kernel_only(cuda_device, monkeypatch):
     assert gqa_kernel.launches == before + 5 * cfg.n_layers
     assert bool(torch.isfinite(logits).all())
     assert cache["length"].tolist() == [5, 5, 5]
+
+
+def test_span_covers_the_device_idle_gap(cuda_device):
+    """Under the profiler, a span around two launches and a 2 ms host
+    wait between them covers the device's idle gap between their
+    kernels, once the span clock is tied to the profiler's host clock
+    and the device's skew is out: the launch calls lie in the span and
+    each end of the gap in its launch call, each to within 50 µs; the gap
+    goes to the span.  (On an H100 a launch call took 10-45 µs under
+    the profiler, its kernel ran before it returned, and the host then
+    spent 20-50 µs of Python before the next line; the wait spins, since
+    after ``time.sleep`` the host took 0.1 ms to reach the next launch.)
+    """
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import Tracer, timeline
+    tr = Tracer()
+    x = torch.ones(1 << 20, device=cuda_device)
+    with profile(activities=[ProfilerActivity.CUDA]):   # its start-up
+        x.add_(1)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mark = timeline.sync_mark()
+        x.add_(1)                # the window's first activity
+        torch.cuda.synchronize()
+        with tr.span("wait"):
+            x.add_(1)
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 0.002:
+                pass
+            x.add_(1)
+        torch.cuda.synchronize()
+    events = timeline.from_profiler(prof.events())
+    offset = timeline.clock_offset_ns(events, mark)
+    assert offset[1] < 25_000, offset
+    ops = sorted((e for e in events if e.on_device),
+                 key=lambda e: e.start_ns)
+    assert len(ops) == 3, ops
+    span = tr.traces()[0].root
+    skew = timeline.device_skew_ns(events)
+    gap = (ops[1].end_ns - skew, ops[2].start_ns - skew)
+    calls = {e.corr: e for e in events if not e.on_device}
+    first, second = calls[ops[1].corr], calls[ops[2].corr]
+    tol = 50_000
+    assert span.start_ns + offset[0] - tol < first.start_ns, (span, first)
+    assert second.end_ns < span.end_ns + offset[0] + tol, (span, second)
+    assert first.start_ns - tol < gap[0] < first.end_ns + tol, (gap, first)
+    assert second.start_ns - tol < gap[1] < second.end_ns + tol, (
+        gap, second)
+    out = timeline.attribute(events, [span], offset)
+    assert out["ops_unmatched"] == 0 and out["calls_without_op"] == 0, out
+    assert out["launches"] == {"outside": 1, "wait": 2}, out
+    assert out["idle_s"]["wait"] >= 0.0019, out
+
+
+def test_moe_counters_reach_the_registry_from_the_card(cuda_device):
+    """The MoE counters that ``moe_block`` sums on the card reach the
+    registry's snapshot (its collector flushes them) equal to a count by
+    loops over the same call's ``moe_dispatch`` outputs: at capacity
+    factor 1.0 assignments drop."""
+    from repro_torch import obs
+    from repro_torch.models import transformer as TT
+    e, k, t, d, f = 8, 2, 96, 16, 8
+    cfg = TT.TransformerConfig(
+        name="moe-count", n_layers=1, d_model=d, n_heads=1, n_kv_heads=1,
+        d_ff=f, vocab=8, dtype="float32",
+        moe=TT.MoEConfig(n_experts=e, top_k=k, d_expert_ff=f,
+                         capacity_factor=1.0))
+    g = torch.Generator().manual_seed(2)
+    shapes = {"router": (d, e), "e_gate": (e, d, f), "e_up": (e, d, f),
+              "e_down": (e, f, d)}
+    lp = {n: torch.randn(s, generator=g).to(cuda_device)
+          for n, s in shapes.items()}
+    x = torch.randn(t, d, generator=g).to(cuda_device)
+    probs = torch.softmax(x @ lp["router"], dim=-1)
+    _, top_e, pos, keep, idx_buf = (a.cpu() for a in
+                                    TT.moe_dispatch(probs, cfg.moe))
+    kept = int(keep.sum())
+    lost = sum(int(idx_buf[top_e[i, j], pos[i, j]]) != i
+               for i, j in keep.nonzero().tolist())
+    want = [kept, t * k - kept, lost, idx_buf.numel()]
+    names = ["lm_moe_assignments_kept_total",
+             "lm_moe_assignments_dropped_total", "lm_moe_kept_lost_total",
+             "lm_moe_slots_total"]
+
+    def read():
+        snap = obs.registry().snapshot()
+        return [snap[n]["series"][0]["value"] if n in snap else 0
+                for n in names]
+
+    was = obs.registry().enabled
+    obs.registry().enable()
+    try:
+        before = read()
+        TT.moe_block(x, lp, cfg)
+        got = [a - b for a, b in zip(read(), before)]
+    finally:
+        obs.registry().enabled = was
+    assert got == want and want[1] > 0, (got, want)
 
 
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "qwen2-moe-a2.7b"])

@@ -62,7 +62,7 @@ def test_importing_every_module_loads_no_jax_or_reference():
             "repro_torch.obs.trace", "repro_torch.obs.rotate",
             "repro_torch.obs.slo", "repro_torch.obs.profile",
             "repro_torch.obs.witness", "repro_torch.obs.hierarchy",
-            "repro_torch.obs.server", "repro_torch.obs.bench",
+            "repro_torch.obs.server", "repro_torch.obs.timeline",
             "repro_torch.dist.autopilot", "repro_torch.dist.simharness",
             "repro_torch.core.sparse", "repro_torch.core.graph_store"} \
         <= set(mods)

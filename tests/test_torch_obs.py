@@ -501,7 +501,7 @@ def test_profiled_lock_without_a_witness_and_rlock():
 
 
 # --------------------------------------------------------------------- #
-# profiler and bench files
+# profiler
 # --------------------------------------------------------------------- #
 def test_sampling_profiler_and_profile_for():
     stop = threading.Event()
@@ -526,27 +526,3 @@ def test_sampling_profiler_and_profile_for():
     assert "spinner;" in text
     with pytest.raises(ValueError):
         T.SamplingProfiler(interval_s=0)
-
-
-def test_bench_files_validate_across_packages(tmp_path):
-    from repro.obs import bench as RB
-    from repro_torch.obs import bench as TB
-    assert TB.SCHEMA == RB.SCHEMA == "repro.bench/v1"
-    assert TB.KINDS == RB.KINDS and TB.REQUIRED == RB.REQUIRED
-    reg = T.MetricsRegistry()
-    reg.counter("autopilot_actions_total", kind="split",
-                outcome="applied").inc()
-    reg.histogram("autopilot_tick_ms").observe(1.5)
-    reg.gauge("slo_burn_rate", slo="p", window="short").set(0.5)
-    path = str(tmp_path / "BENCH_x.json")
-    doc = TB.emit(path, "autopilot", extra={"bench": {"n": float("nan")}},
-                  reg=reg)
-    assert RB.validate(path) == [] and TB.validate(path) == []
-    assert doc["bench"] == {"n": None}
-    bad = dict(doc, schema="other")
-    assert RB.validate_doc(bad) == TB.validate_doc(bad) != []
-    empty = T.MetricsRegistry()
-    with pytest.raises(ValueError, match="refusing"):
-        TB.emit(str(tmp_path / "no.json"), "autopilot", reg=empty)
-    assert TB.main(["validate", path]) == 0
-    assert TB.main([]) == 2
